@@ -1,0 +1,103 @@
+"""Wrapper of the Hopper flash-attention kernel (``csrc/flash_attention.cu``).
+
+The port's counterpart of ``repro.kernels.flash_attention``.  It computes
+``ref.reference_attention``: q (B, Sq, H, hd), k/v (B, Sk, KV, hd), query
+row i at position i + Sk - Sq, causal and sliding-window masks, f32
+softmax statistics, output in ``q.dtype``.
+
+A CPU tensor goes to the plain version.  A CUDA tensor launches the kernel
+or raises; nothing falls back.  Any other device raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import reference_attention
+
+NAME = "flash_attention"
+#: head dims the CUDA build instantiates
+HEAD_DIMS = (64, 128)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+             + [ctypes.c_longlong] * 12
+             + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_fn():
+    """The C entry point, built and loaded at first use."""
+    fn = build.load(NAME).flash_attention_fwd
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_shapes(q, k, v):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash_attention wants q (B,Sq,H,hd) and k/v "
+                         f"(B,Sk,KV,hd); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, Sq, H, hd = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    KV = k.shape[2]
+    if KV == 0 or H % KV:
+        raise ValueError(f"{H} query heads do not group over {KV} KV heads")
+
+
+def _launch(q, k, v, causal, window):
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    if not (k.is_cuda and v.is_cuda and k.device == q.device == v.device):
+        raise ValueError("flash_attention: q, k, v must lie on one CUDA "
+                         "device")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention takes float32 or bfloat16 for "
+                         f"q, k and v alike; got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {hd} is not built "
+                         f"(built: {HEAD_DIMS})")
+    if not 1 <= Sq <= Sk:
+        raise ValueError(f"flash_attention needs 1 <= Sq <= Sk; got "
+                         f"Sq={Sq}, Sk={Sk}")
+    if B > 65535 or KV > 65535:
+        raise ValueError("flash_attention: batch and KV heads must each "
+                         "be at most 65535 (grid limits)")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(3) != 1:
+            raise ValueError(f"flash_attention: {name} must be contiguous "
+                             f"in head_dim; strides {t.stride()}")
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    fn = _kernel_fn()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 _DTYPE_CODE[q.dtype], B, Sq, Sk, H, KV, hd,
+                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                 *out.stride()[:3], int(causal), int(window),
+                 1.0 / math.sqrt(hd), stream)
+    if err < 0:
+        raise ValueError(f"flash_attention: the kernel refused its "
+                         f"arguments (code {err})")
+    if err > 0:
+        raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
+    build.LAUNCHES[NAME] += 1
+    return out
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """q: (B, Sq, H, hd); k/v: (B, Sk, KV, hd) -> (B, Sq, H, hd)."""
+    _check_shapes(q, k, v)
+    if q.is_cuda:
+        return _launch(q, k, v, causal, window)
+    if q.device.type == "cpu":
+        return reference_attention(q, k, v, causal=causal, window=window)
+    raise ValueError(f"flash_attention: no path for device {q.device}")

@@ -1,0 +1,101 @@
+"""Attention: projections, a plain core, and one-token decode.
+
+Twin of ``repro.models.attention`` on one device (no sequence sharding).
+Prefill and decode reach the Hopper flash-attention kernel through
+``kernels.ops.attention``; ``attn_core`` is the plain path with explicit
+positions and logit softcap, for the cases the kernel does not take.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+
+NEG_INF = -1e30
+
+
+def project_qkv(cfg, p, x, positions, *, rope: bool = True):
+    """x: (B, S, D) -> q (B,S,H,hd), k/v (B,S,KV,hd), roped + qk-normed."""
+    B, S, _ = x.shape
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
+    k = k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = L.rms_head_norm(q, p["q_norm"], cfg.norm_eps)
+        k = L.rms_head_norm(k, p["k_norm"], cfg.norm_eps)
+    if rope:
+        q, k = L.apply_rope(cfg, q, k, positions)
+    return q, k, v
+
+
+def attn_core(q, k, v, qpos, kpos, *, causal=True, window=0, softcap=0.0):
+    """Dense attention with explicit positions (f32 scores).
+
+    q: (B, Sq, H, hd); k/v: (B, Sk, KV, hd); qpos: (B, Sq); kpos: (Sk,).
+    Probabilities are cast to ``v.dtype`` before the value product, as the
+    JAX ``attn_core`` does.
+    """
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, Sq, KV, G, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float())
+    s = s * (1.0 / float(hd) ** 0.5)
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    kb = kpos[None, None, None, None, :]
+    qb = qpos[:, None, None, :, None]
+    mask = torch.ones((B, 1, 1, Sq, kpos.shape[0]), dtype=torch.bool,
+                      device=q.device)
+    if causal:
+        mask = mask & (kb <= qb)
+    if window > 0:
+        mask = mask & (kb > qb - window)
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    a = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskh->bqkgh", a.to(v.dtype), v)
+    return o.reshape(B, Sq, H, hd)
+
+
+def attention(q, k, v, *, causal=True, window=0, softcap=0.0):
+    """Self-attention over a fresh sequence (positions 0..S-1)."""
+    if softcap:
+        S = q.shape[1]
+        pos = torch.arange(S, device=q.device)
+        return attn_core(q, k, v, pos.expand(q.shape[0], S), pos,
+                         causal=causal, window=window, softcap=softcap)
+    return ops.attention(q, k, v, causal=causal, window=window)
+
+
+def attn_decode(q, k_new, v_new, cache_k, cache_v, pos: int, *, window=0,
+                softcap=0.0):
+    """One-token decode.
+
+    q/k_new/v_new: (B, 1, {H|KV}, hd); cache_{k,v}: (B, L, KV, hd).
+    pos: host int, the number of tokens already in the cache; the new token
+    is written at index ``pos`` and attends over [0, pos].
+    Returns (y (B,1,H,hd), cache_k, cache_v).
+
+    Unlike JAX's ``dynamic_update_slice``, the new k/v are written into the
+    cache tensors IN PLACE: the caches passed in are the caches returned.
+    """
+    cache_k[:, pos] = k_new[:, 0]
+    cache_v[:, pos] = v_new[:, 0]
+    ck, cv = cache_k[:, :pos + 1], cache_v[:, :pos + 1]
+    if softcap:
+        B = q.shape[0]
+        qpos = torch.full((B, 1), pos, device=q.device)
+        kpos = torch.arange(pos + 1, device=q.device)
+        y = attn_core(q, ck, cv, qpos, kpos, causal=True, window=window,
+                      softcap=softcap)
+    else:
+        # Sq = 1 over Sk = pos + 1 keys: the aligned-suffix rule puts the
+        # query at position pos
+        y = ops.attention(q, ck, cv, causal=True, window=window)
+    return y, cache_k, cache_v

@@ -1,0 +1,225 @@
+"""Model assembly: layer specs, init, prefill/decode entry points.
+
+Twin of ``repro.models.model`` for the dense LM family on one device.
+Where JAX stacks the layers of a segment and runs them under
+``jax.lax.scan``, the port keeps one parameter dict per layer
+(``params["layers"]``) and loops over them in Python.
+
+Parameters are plain dicts of tensors in the JAX layout: a dense weight is
+``(d_in, d_out)`` and applied as ``x @ w``.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import List, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.blocks import Ctx, LayerSpec, apply_block
+
+
+@dataclass(frozen=True)
+class Segment:
+    pattern: Tuple[LayerSpec, ...]
+    repeats: int
+
+
+# ---------------------------------------------------------------------------
+# Layer specs & segments (the JAX package's grouping, for weight transfer).
+# ---------------------------------------------------------------------------
+
+
+def layer_specs(cfg) -> List[LayerSpec]:
+    specs = []
+    for i in range(cfg.n_layers):
+        if cfg.family == "moe":
+            kind = "attn_dense" if i < cfg.first_dense_layers else "attn_moe"
+        elif cfg.family == "ssm":
+            kind = ("slstm" if cfg.slstm_every and
+                    (i % cfg.slstm_every == cfg.slstm_every - 1) else "mlstm")
+        elif cfg.family == "hybrid":
+            kind = "hybrid"
+        elif cfg.is_encoder_decoder:
+            kind = "dec"
+        else:
+            kind = "attn_mlp"
+        window = 0
+        if kind in ("attn_mlp", "attn_moe", "attn_dense", "hybrid"):
+            if cfg.attn_kind(i) == "L" and cfg.sliding_window:
+                window = cfg.sliding_window
+        specs.append(LayerSpec(kind=kind, window=window))
+    return specs
+
+
+def build_segments(specs: Sequence[LayerSpec]) -> List[Segment]:
+    n = len(specs)
+    # cyclic grouping with the smallest period
+    for period in range(1, min(12, n) + 1):
+        if n % period:
+            continue
+        if all(specs[i] == specs[i % period] for i in range(n)):
+            return [Segment(tuple(specs[:period]), n // period)]
+    # run-length fallback
+    segs: List[Segment] = []
+    i = 0
+    while i < n:
+        j = i
+        while j < n and specs[j] == specs[i]:
+            j += 1
+        segs.append(Segment((specs[i],), j - i))
+        i = j
+    return segs
+
+
+# ---------------------------------------------------------------------------
+# Init.
+# ---------------------------------------------------------------------------
+
+
+def _dtype(cfg):
+    return getattr(torch, cfg.dtype)
+
+
+def init_model(cfg, generator: torch.Generator, device=None, dtype=None):
+    """Seeded init with the JAX package's distributions (not its bits).
+
+    Every weight is drawn in f32 from ``generator`` on the CPU, then cast
+    to ``dtype`` and moved to ``device``: one seed gives the same weights
+    on every device.
+    """
+    device = resolve_device(device)
+    dtype = dtype or _dtype(cfg)
+
+    def normal(shape, std):
+        t = torch.randn(shape, generator=generator, dtype=torch.float32)
+        return (t * std).to(device=device, dtype=dtype)
+
+    def dense(d_in, d_out):
+        return normal((d_in, d_out), 1.0 / math.sqrt(d_in))
+
+    def const(shape, value):
+        return torch.full(shape, value, dtype=dtype, device=device)
+
+    def norm(d):
+        p = {"scale": const((d,), 1.0)}
+        if cfg.norm == "layernorm":
+            p["bias"] = const((d,), 0.0)
+        return p
+
+    d, qd, kvd = cfg.d_model, cfg.qkv_dim, cfg.kv_dim
+    layers = []
+    for spec in layer_specs(cfg):
+        if spec.kind != "attn_mlp":
+            raise NotImplementedError(
+                f"block kind {spec.kind!r} is not ported yet")
+        attn = {"wq": dense(d, qd), "wk": dense(d, kvd), "wv": dense(d, kvd),
+                "wo": dense(qd, d)}
+        if cfg.attn_bias:
+            attn.update(bq=const((qd,), 0.0), bk=const((kvd,), 0.0),
+                        bv=const((kvd,), 0.0))
+        if cfg.attn_out_bias:
+            attn["bo"] = const((d,), 0.0)
+        if cfg.qk_norm:
+            attn["q_norm"] = const((cfg.head_dim,), 1.0)
+            attn["k_norm"] = const((cfg.head_dim,), 1.0)
+        mlp = {}
+        if cfg.mlp in ("swiglu", "geglu"):
+            mlp["w_gate"] = dense(d, cfg.d_ff)
+        mlp["w_up"] = dense(d, cfg.d_ff)
+        if cfg.mlp not in ("swiglu", "geglu") and cfg.mlp_bias:
+            mlp["b_up"] = const((cfg.d_ff,), 0.0)
+        mlp["w_down"] = dense(cfg.d_ff, d)
+        if cfg.mlp_bias:
+            mlp["b_down"] = const((d,), 0.0)
+        layers.append({"norm1": norm(d), "attn": attn, "norm2": norm(d),
+                       "mlp": mlp})
+    params = {"embed": {"table": normal((cfg.vocab_size, d), 0.02)},
+              "layers": layers, "final_norm": norm(d)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = {"w": dense(d, cfg.vocab_size)}
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Embedding / head.
+# ---------------------------------------------------------------------------
+
+
+def embed_tokens(cfg, params, tokens):
+    x = F.embedding(tokens, params["embed"]["table"])
+    if cfg.embed_scale:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+    return x
+
+
+def lm_logits(cfg, params, x):
+    if cfg.tie_embeddings:
+        return x @ params["embed"]["table"].T.to(x.dtype)   # (V, D)
+    return x @ params["lm_head"]["w"].to(x.dtype)            # (D, V)
+
+
+# ---------------------------------------------------------------------------
+# Entry points.
+# ---------------------------------------------------------------------------
+
+
+def forward(cfg, params, batch, mode: str = "prefill", caches=None,
+            pos=None):
+    """Prefill or decode.
+
+    batch: tokens (B, S) and positions (B, S).  Prefill attends over the
+    fresh sequence with positions 0..S-1 (the flash kernel's aligned-suffix
+    rule); decode has S == 1, a host int ``pos`` and ``caches``.
+    Returns (logits, caches).
+    """
+    if mode not in ("prefill", "decode"):
+        raise ValueError(f"mode {mode!r}: the port serves prefill and decode")
+    if cfg.is_encoder_decoder or "patch_embeds" in batch:
+        raise NotImplementedError(
+            "encoder-decoder and vision inputs are not ported yet")
+    x = embed_tokens(cfg, params, batch["tokens"])
+    ctx = Ctx(mode=mode, positions=batch["positions"], pos=pos)
+    new_caches = []
+    for i, (spec, p) in enumerate(zip(layer_specs(cfg), params["layers"])):
+        x, c = apply_block(cfg, spec, p, x, ctx,
+                           caches[i] if caches is not None else None)
+        new_caches.append(c)
+    x = L.apply_norm(cfg, params["final_norm"], x)
+    if mode == "prefill":
+        # serving needs the last position's logits only: slice BEFORE the
+        # head so the (B, S, V) logits tensor never materializes
+        x = x[:, -1:]
+    return lm_logits(cfg, params, x), new_caches
+
+
+def prefill(cfg, params, batch):
+    logits, caches = forward(cfg, params, batch, mode="prefill")
+    return logits[:, -1], caches
+
+
+def decode_step(cfg, params, tokens, pos: int, caches, positions=None):
+    """tokens: (B, 1); pos: host int cache length so far.  The caches are
+    updated in place and returned."""
+    B = tokens.shape[0]
+    if positions is None:
+        positions = torch.full((B, 1), pos, dtype=torch.int64,
+                               device=tokens.device)
+    batch = {"tokens": tokens, "positions": positions}
+    return forward(cfg, params, batch, mode="decode", caches=caches, pos=pos)
+
+
+def pad_caches(caches, target_len: int):
+    """Grow every layer's KV cache to ``target_len`` slots (zeros after)."""
+    out = []
+    for c in caches:
+        grown = {}
+        for name, t in c["attn"].items():
+            g = t.new_zeros((t.shape[0], target_len) + tuple(t.shape[2:]))
+            g[:, :t.shape[1]] = t
+            grown[name] = g
+        out.append({"attn": grown})
+    return out

@@ -1,0 +1,56 @@
+"""Carry a JAX parameter tree, as numpy arrays, into the port's parameters.
+
+``from_jax(cfg, params_np)`` takes ``repro.models.model.init_model``'s tree
+after ``jax.tree.map(np.asarray, params)`` and returns the dicts that
+``repro_torch.models.model`` reads:
+
+* ``params["segments"][i]`` holds a segment's layers; where the segment
+  repeats, each leaf carries a leading ``repeats`` axis, which is unstacked
+  here into one dict per layer, in the order the JAX scan runs them.
+* Dense weights keep the JAX ``(d_in, d_out)`` layout (no transpose): the
+  port applies them as ``x @ w`` too.
+* A tied head reuses ``embed.table``; an untied one is ``lm_head.w``
+  ``(d_model, vocab)``.  The qwen2 QKV biases ``bq/bk/bv`` come along with
+  the rest of the attention dict.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models.model import build_segments, layer_specs
+
+
+def _tensor(a, device):
+    if a.dtype.name == "bfloat16":   # ml_dtypes: torch cannot take it raw
+        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))   # a writable copy
+    return t.to(device)
+
+
+def _tree(node, device, index=None):
+    if isinstance(node, dict):
+        return {k: _tree(v, device, index) for k, v in node.items()}
+    a = np.asarray(node)
+    return _tensor(a if index is None else a[index], device)
+
+
+def from_jax(cfg, params_np, device=None):
+    """JAX parameter tree (numpy leaves) -> port parameters on ``device``,
+    each in its array's own dtype."""
+    device = resolve_device(device)
+    layers = []
+    for seg, sp in zip(build_segments(layer_specs(cfg)),
+                       params_np["segments"]):
+        for r in range(seg.repeats):
+            index = r if seg.repeats > 1 else None
+            for pi in range(len(seg.pattern)):
+                layers.append(_tree(sp[pi], device, index))
+    params = {"embed": _tree(params_np["embed"], device),
+              "layers": layers,
+              "final_norm": _tree(params_np["final_norm"], device)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = _tree(params_np["lm_head"], device)
+    return params
