@@ -17,13 +17,38 @@ Phases, one JSON line each; any failure exits non-zero:
   serve_profile  the device's busy share of a short request (torch.profiler)
   serve_parity   the same seeded weights in f32, served on the CPU (plain
                  path) and on the card (kernel): logits and ids must agree
+  masked_grad_agg
+                 the kernel against its plain version: W in {2, 8, 158} x
+                 N in {1, 1000, 2^20}, f32 and bf16, 0/1, fractional and
+                 all-zero masks, W at the kernel's worker limit (and one
+                 more, which must raise), plus the full-width
+                 (8, 494,032,768) f32 buffer; kernel / plain / library
+                 ((mask @ g) / c) / bound ms
+  fused_adam     the kernel against reference_adam at steps 1 and 100, wd 0
+                 and 0.01, bf16 and f32 p (f32 m/v), on every distinct layer
+                 shape plus ragged and unaligned leaves; then one checked
+                 step over the 290 full-width leaves (bf16 p), timed:
+                 kernel / plain / library (torch AdamW fused=True) / bound ms
+  train          full-width qwen2-0.5b cutoff SGD (bf16, seeded init):
+                 SyntheticTokens(seq 128, batch 16), 8 workers,
+                 FirstKController(8, backup=2), ClusterSim(8, 2 nodes, seed
+                 7), adamw(cosine_schedule(3e-4, 2, 20), fused=True), 5
+                 psum steps then 1 weights step; asserts the launch counts
+                 of every step and finite losses, and counts the optimizer's
+                 leaf-table uploads per step
+  train_profile  the device's busy share of one more psum step
+  train_parity   the same psum step at full width and 2 layers, f32, W = 4,
+                 2 steps, on the CPU (plain versions) and on the card
+                 (kernels): loss, aggregated gradient, m, v and p
 
-Then a ``{"kernels": [...]}`` summary line, the card's name and power limit
-from nvidia-smi, and ``{"ok": true, "device": {...}}`` as the last line.
+Then the wall seconds of every phase, a ``{"kernels": [...]}`` summary
+line, the card's name and power limit from nvidia-smi, and
+``{"ok": true, "device": {...}}`` as the last line.
 Without a CUDA device it exits 1 and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -36,6 +61,11 @@ HBM_BYTES_PER_S = 3.35e12            # H100 SXM HBM3
 PEAK_OPS = {"bfloat16": 989e12,       # dense tensor-core bf16
             "float32": 67e12}         # f32 outside the tensor cores
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}   # tests/test_kernels.py
+# tests/test_kernels.py: masked agg 1e-5 (f32) and 1e-2 (bf16), atol=rtol
+AGG_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# tests/test_kernels.py fused adam: (atol, rtol) for m and v, atol for p
+ADAM_TOL = {"m": (1e-5, 1e-5), "v": (1e-6, 1e-5),
+            "p": {"float32": 1e-5, "bfloat16": 2e-3}}
 PARITY_LOGIT_ATOL = 1e-3   # f32, 24 layers, sums in another order per device
 SEED = 0
 
@@ -51,6 +81,8 @@ FLASH_CASES = [
     ("hd128_s256", 2, 256, 256, 8, 2, 128, "bfloat16", True, 0, 0),
 ]
 HEADLINE_CASE = "prefill_s128"   # the serve prompt's shape
+AGG_HEADLINE = "full_w8_f32"      # the train step's (8, N) buffer
+ADAM_HEADLINE = "full_bfloat16"   # the train step's leaves
 
 
 def emit(phase, **kw):
@@ -103,6 +135,25 @@ def device_ms(torch, fn, side, reps=20):
     ms = start.elapsed_time(end) / reps
     del graph
     return ms
+
+
+def device_profile(torch, fn, n_top=10):
+    """Run ``fn`` under torch.profiler, recording the device's activity
+    only (kernels and copies; recording the host's ops as well costs seconds
+    of post-processing per 10^4 kernels): device ms, device events and the
+    kernels that took longest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    top = sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)
+    return {"device_ms": sum(e.self_device_time_total for e in dev) / 1e3,
+            "device_events": sum(e.count for e in dev),
+            "top": [{"kernel": e.key[:100], "count": e.count,
+                     "device_ms": e.self_device_time_total / 1e3}
+                    for e in top[:n_top]]}
 
 
 def valid_pairs(Sq, Sk, causal, window):
@@ -264,25 +315,13 @@ def phase_serve(torch, cfg, params_f32):
 
     # device busy share of a short request: kernel time from the profiler
     # against the same request's unprofiled wall time
-    from torch.profiler import ProfilerActivity, profile
-
     n_prof = 8
     t0 = time.perf_counter()
     engine.generate(prompts, n_prof)
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        engine.generate(prompts, n_prof)
-    dev = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_ms = sum(e.self_device_time_total for e in dev) / 1e3
-    top = sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)
-    emit("serve_profile", n_new=n_prof, wall_ms=wall_ms, device_ms=dev_ms,
-         device_busy_share=dev_ms / wall_ms,
-         device_events=sum(e.count for e in dev),
-         top=[{"kernel": e.key[:100], "count": e.count,
-               "device_ms": e.self_device_time_total / 1e3}
-              for e in top[:8]])
+    prof = device_profile(torch, lambda: engine.generate(prompts, n_prof))
+    emit("serve_profile", n_new=n_prof, wall_ms=wall_ms,
+         device_busy_share=prof["device_ms"] / wall_ms, **prof)
     return launches
 
 
@@ -319,37 +358,515 @@ def phase_parity(torch, cfg, params_f32):
     check(same, "greedy ids differ between the CPU and the card")
 
 
+def _allclose_excess(torch, got, want, atol, rtol):
+    """max(|got - want| - rtol |want|): at most ``atol`` when allclose."""
+    d = (got.float() - want.float()).abs() - rtol * want.float().abs()
+    return d.max()
+
+
+AGG_CASES_W = (2, 8, 158)
+AGG_CASES_N = (1, 1000, 1 << 20)
+FULL_N = 494_032_768           # qwen2-0.5b parameters (tied head)
+
+
+def _agg_masks(torch, W, gen):
+    bits = (torch.arange(W, device="cuda") % 3 != 0).float()
+    frac = torch.rand(W, generator=gen, device="cuda")
+    return {"bits": bits, "fractional": frac,
+            "zero": torch.zeros(W, device="cuda")}
+
+
+def _agg_times(torch, side, g, mask, reps):
+    from repro_torch.kernels.masked_grad_agg import masked_grad_agg
+    from repro_torch.kernels.ref import reference_masked_agg
+
+    W, N = g.shape
+    m2 = mask.reshape(1, W).to(g.dtype)
+    c = torch.clamp(mask.sum(), min=1.0)
+    fns = {"ms": lambda: masked_grad_agg(g, mask),
+           "plain_ms": lambda: reference_masked_agg(g, mask.reshape(-1, 1)),
+           "library_ms": lambda: (m2 @ g) / c}
+    times = {k: device_ms(torch, f, side, reps=reps) for k, f in fns.items()}
+    elt = g.element_size()
+    nbytes = W * N * elt + N * elt + 4 * W
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * W * N / PEAK_OPS["float32"] * 1e3
+    return dict(times, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes)
+
+
+def phase_masked_agg(torch):
+    from repro_torch.kernels.masked_grad_agg import (MAX_WORKERS,
+                                                      masked_grad_agg)
+    from repro_torch.kernels.ref import reference_masked_agg
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    side = torch.cuda.Stream()
+    worst, cases = 0.0, 0
+    for dtname in ("float32", "bfloat16"):
+        dt = getattr(torch, dtname)
+        for W in AGG_CASES_W:
+            for N in AGG_CASES_N:
+                g = torch.randn(W, N, generator=gen, device="cuda").to(dt)
+                for mname, mask in _agg_masks(torch, W, gen).items():
+                    out = masked_grad_agg(g, mask)
+                    want = reference_masked_agg(g, mask.reshape(-1, 1))[0]
+                    check(out.shape == (N,) and out.dtype == dt,
+                          f"masked_grad_agg {W}x{N} {dtname}: output "
+                          f"{tuple(out.shape)} {out.dtype}")
+                    tol = AGG_TOL[dtname]
+                    ex = _allclose_excess(torch, out, want, tol, tol).item()
+                    check(ex <= tol, f"masked_grad_agg {W}x{N} {dtname} "
+                          f"{mname} mask: off by {ex} beyond rtol > {tol}")
+                    if mname == "zero":
+                        check(bool((out == 0).all()), "masked_grad_agg: an "
+                              "all-zero mask must give exact zeros")
+                    err = (out.float() - want.float()).abs().max().item()
+                    worst = max(worst, err)
+                    cases += 1
+                del g
+    # the worker limit: the kernel takes MAX_WORKERS rows and refuses more
+    g = torch.randn(MAX_WORKERS + 1, 1000, generator=gen, device="cuda")
+    mask = _agg_masks(torch, MAX_WORKERS + 1, gen)["fractional"]
+    out = masked_grad_agg(g[:-1], mask[:-1])
+    want = reference_masked_agg(g[:-1], mask[:-1].reshape(-1, 1))[0]
+    ex = _allclose_excess(torch, out, want, AGG_TOL["float32"],
+                          AGG_TOL["float32"]).item()
+    check(ex <= AGG_TOL["float32"], f"masked_grad_agg at the worker limit "
+          f"{MAX_WORKERS}: off by {ex}")
+    worst = max(worst, (out - want).abs().max().item())
+    cases += 1
+    try:
+        masked_grad_agg(g, mask)
+    except ValueError:
+        pass
+    else:
+        raise RuntimeError(f"masked_grad_agg took {MAX_WORKERS + 1} workers")
+    del g, out, want
+    emit("masked_grad_agg", checked_cases=cases, max_abs_err=worst,
+         max_workers=MAX_WORKERS)
+
+    results = {}
+    timed = [("w158_n2^20_f32", 158, 1 << 20, "float32", 20),
+             ("w8_n2^20_bf16", 8, 1 << 20, "bfloat16", 20),
+             ("full_w8_f32", 8, FULL_N, "float32", 5)]
+    for name, W, N, dtname, reps in timed:
+        dt = getattr(torch, dtname)
+        g = torch.randn(W, N, generator=gen, device="cuda", dtype=dt)
+        mask = _agg_masks(torch, W, gen)["bits"]
+        out = masked_grad_agg(g, mask)
+        want = reference_masked_agg(g, mask.reshape(-1, 1))[0]
+        err = (out.float() - want.float()).abs().max().item()
+        tol = AGG_TOL[dtname]
+        ex = _allclose_excess(torch, out, want, tol, tol).item()
+        check(ex <= tol, f"masked_grad_agg {name}: off by {ex} > {tol}")
+        del out, want
+        torch.cuda.empty_cache()
+        rec = {"case": name, "W": W, "N": N, "dtype": dtname,
+               "max_abs_err": err, "tol": tol,
+               **_agg_times(torch, side, g, mask, reps)}
+        results[name] = rec
+        emit("masked_grad_agg", **rec)
+        del g
+        torch.cuda.empty_cache()
+    return results, worst
+
+
+def _adam_inputs(torch, shapes, p_dt, gen, offset=()):
+    """Random p, g, m, v leaves; the leaves whose index is in ``offset``
+    start one element past an aligned address (the kernel's scalar path)."""
+    def rand(i, shape, dt, scale=1.0):
+        x = (torch.randn(shape, generator=gen, device="cuda") * scale).to(dt)
+        if i not in offset:
+            return x
+        y = torch.empty(x.numel() + 1, dtype=dt, device="cuda")[1:]
+        return y.view(shape).copy_(x)
+
+    ps = [rand(i, s, p_dt) for i, s in enumerate(shapes)]
+    gs = [rand(i, s, p_dt) for i, s in enumerate(shapes)]
+    ms = [rand(i, s, torch.float32, 0.1) for i, s in enumerate(shapes)]
+    vs = [rand(i, s, torch.float32, 0.01).abs_() for i, s in enumerate(shapes)]
+    return ps, gs, ms, vs
+
+
+def _adam_check(torch, ps, gs, ms, vs, step, wd, dtname):
+    """One kernel step on copies of the leaves against reference_adam,
+    leaf by leaf; returns the max abs error of p, m and v."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused_adam import fused_adam_
+    from repro_torch.kernels.ref import reference_adam
+
+    scal = ops.adam_scalars(step - 1, 1e-3, 0.9, 0.999)
+    kp = [x.clone() for x in ps]
+    km = [x.clone() for x in ms]
+    kv = [x.clone() for x in vs]
+    fused_adam_(kp, gs, km, kv, scal, wd=wd)
+    errs = {"p": [], "m": [], "v": []}
+    excess = {"p": [], "m": [], "v": []}
+    for i in range(len(ps)):
+        wp, wm, wv = reference_adam(ps[i], gs[i], ms[i], vs[i], scal, wd=wd)
+        for key, got, want in (("p", kp[i], wp), ("m", km[i], wm),
+                               ("v", kv[i], wv)):
+            errs[key].append((got.float() - want.float()).abs().max())
+            atol, rtol = ((ADAM_TOL["p"][dtname], 0.0) if key == "p"
+                          else ADAM_TOL[key])
+            excess[key].append(_allclose_excess(torch, got, want, atol, rtol)
+                               - atol)
+        del wp, wm, wv
+    err = {k: torch.stack(v).max().item() for k, v in errs.items()}
+    over = {k: torch.stack(v).max().item() for k, v in excess.items()}
+    for k in over:
+        check(over[k] <= 0.0, f"fused_adam {dtname} step {step} wd {wd}: "
+              f"{k} beyond tolerance by {over[k]}")
+    return err
+
+
+def _adam_grid_shapes(shapes):
+    """The correctness grid's leaves: each distinct shape of the model up
+    to 2^24 elements (every layer leaf; not the embedding), and ragged
+    sizes around the kernel's chunk of 4096 elements."""
+    from repro_torch.kernels.fused_adam import CHUNK
+
+    distinct = [s for s in dict.fromkeys(shapes) if np.prod(s) <= 1 << 24]
+    return distinct + [(1,), (3,), (CHUNK - 1,), (CHUNK + 5,),
+                       (7, 3 * CHUNK + 1)]
+
+
+def phase_fused_adam(torch, shapes):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused_adam import LeafTable, fused_adam_
+    from repro_torch.kernels.ref import reference_adam
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    side = torch.cuda.Stream()
+    worst = 0.0
+    # the grid of steps and weight decays on a subset of leaves that holds
+    # every layer shape, ragged chunk tails and unaligned leaves
+    grid = _adam_grid_shapes(shapes)
+    offset = set(range(len(grid) - 3, len(grid)))
+    for dtname in ("bfloat16", "float32"):
+        ps, gs, ms, vs = _adam_inputs(torch, grid, getattr(torch, dtname),
+                                      gen, offset)
+        for step in (1, 100):
+            for wd in (0.0, 0.01):
+                err = _adam_check(torch, ps, gs, ms, vs, step, wd, dtname)
+                worst = max(worst, *err.values())
+                emit("fused_adam", dtype=dtname, step=step, wd=wd,
+                     leaves=len(ps), unaligned=len(offset),
+                     params=sum(x.numel() for x in ps), max_abs_err=err,
+                     tol={"p": ADAM_TOL["p"][dtname], "m": ADAM_TOL["m"],
+                          "v": ADAM_TOL["v"]})
+        del ps, gs, ms, vs
+
+    # the full-width leaves, as the train step hands them in (bf16 p and
+    # g, f32 m and v): one checked step, then the times
+    n_params = sum(int(np.prod(s)) for s in shapes)
+    results = {}
+    dtname = "bfloat16"
+    p_dt = getattr(torch, dtname)
+    ps, gs, ms, vs = _adam_inputs(torch, shapes, p_dt, gen)
+    err = _adam_check(torch, ps, gs, ms, vs, 1, 0.01, dtname)
+    worst = max(worst, *err.values())
+    # times: in place on the same leaves, as the optimizer runs it
+    scal = ops.adam_scalars(0, 1e-3, 0.9, 0.999)
+    table = LeafTable()
+    lib_params = [x.clone() for x in ps]
+    for lp, g in zip(lib_params, gs):
+        lp.grad = g
+    lib = torch.optim.AdamW(lib_params, lr=1e-3, weight_decay=0.01,
+                            fused=True, capturable=True)
+    fns = {"ms": lambda: fused_adam_(ps, gs, ms, vs, scal, wd=0.01,
+                                     table=table),
+           "plain_ms": lambda: [reference_adam(p, g, m, v, scal, wd=0.01)
+                                for p, g, m, v in zip(ps, gs, ms, vs)],
+           "library_ms": lib.step}
+    # the plain version: 290 leaves x ~15 ops a call, few calls a graph
+    times = {k: device_ms(torch, f, side, reps=3 if k == "plain_ms"
+                          else 10) for k, f in fns.items()}
+    times["eager_ms"] = eager_ms(torch, fns["ms"], reps=10)
+    times["eager_library_ms"] = eager_ms(torch, lib.step, reps=10)
+    pe = ps[0].element_size()
+    nbytes = n_params * (2 * pe + pe + 2 * 4 * 2)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 12 * n_params / PEAK_OPS["float32"] * 1e3
+    rec = {"case": f"full_{dtname}", "leaves": len(ps),
+           "params": n_params, "dtype": dtname, "step": 1, "wd": 0.01,
+           "max_abs_err": err, **times,
+           "library": f"torch.optim.AdamW(fused=True, capturable=True), "
+                      f"{dtname} params, grads and moments",
+           "table_uploads": table.uploads,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes": nbytes}
+    results[rec["case"]] = rec
+    emit("fused_adam", **rec)
+    del ps, gs, ms, vs, lib_params, lib, fns
+    torch.cuda.empty_cache()
+    return results, worst
+
+
+def _train_setup(torch, cfg, params, *, n_workers, seq, batch, controller,
+                 timer, record=None):
+    """A psum Trainer with the slice's optimizer; ``record`` (a list), when
+    given, receives each step's aggregated gradient on the CPU."""
+    from repro_torch import optim
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.launch.train import Trainer, make_train_step
+
+    opt = optim.adamw(optim.cosine_schedule(3e-4, 2, 20), fused=True)
+    if record is not None:
+        inner = opt
+
+        def update(grads, state, params_=None):
+            record.append(cast(grads, "cpu", torch.float32))
+            return inner.update(grads, state, params_)
+
+        opt = optim.Optimizer(inner.init, update)
+    step_fn = make_train_step(cfg, opt, mask_agg="psum")
+    data = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=seq,
+                           global_batch=batch, seed=SEED)
+    tr = Trainer(step_fn=step_fn, data=data, controller=controller,
+                 timer=timer, n_workers=n_workers, mask_agg="psum",
+                 metrics_every=1)
+    tr.restore_or_init(lambda: {"params": params, "opt": opt.init(params)})
+    return tr, opt
+
+
+def phase_train(torch, cfg, params_f32):
+    from repro_torch import tree
+    from repro_torch.cluster.simulator import ClusterSim
+    from repro_torch.core.controller import FirstKController
+    from repro_torch.kernels import build
+    from repro_torch.launch.train import make_train_step
+
+    W, S, B, n_steps = 8, 128, 16, 5
+    t_setup = time.perf_counter()
+    params = cast(params_f32, "cuda", torch.bfloat16)
+    tr, opt = _train_setup(torch, cfg, params, n_workers=W, seq=S, batch=B,
+                           controller=FirstKController(W, backup=2),
+                           timer=ClusterSim(n_workers=W, n_nodes=2, seed=7))
+    want = {"flash_attention": cfg.n_layers * W, "masked_grad_agg": 1,
+            "fused_adam": 1}
+    totals = {}
+    torch.cuda.synchronize()
+    seconds = {"setup": time.perf_counter() - t_setup}
+    t_steps = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(n_steps):
+        build.LAUNCHES.clear()
+        uploads = opt.table.uploads
+        t0 = time.perf_counter()
+        rec = tr.run(1)[-1]        # drains the loss: ends in a device sync
+        wall = time.perf_counter() - t0
+        uploads = opt.table.uploads - uploads
+        launches = dict(build.LAUNCHES)
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        check(launches == want, f"psum step {rec['step']}: launches "
+              f"{launches}, want {want}")
+        check(bool(np.isfinite(rec["loss"])),
+              f"step {rec['step']}: loss {rec['loss']}")
+        emit("train", mask_agg="psum", step=rec["step"], wall_ms=wall * 1e3,
+             tokens_per_s=B * S / wall, c=rec["c"], n=rec["n"],
+             loss=rec["loss"], clock=rec["clock"], launches=launches,
+             leaf_table_uploads=uploads,
+             max_memory_allocated=torch.cuda.max_memory_allocated())
+    peak = torch.cuda.max_memory_allocated()
+    seconds["psum_steps"] = time.perf_counter() - t_steps
+
+    # the device's busy share of one more psum step
+    t_prof = time.perf_counter()
+    wall = []
+
+    def one_step():
+        t0 = time.perf_counter()
+        tr.run(1)
+        wall.append((time.perf_counter() - t0) * 1e3)
+
+    prof = device_profile(torch, one_step)
+    seconds["profile"] = time.perf_counter() - t_prof
+    emit("train_profile", mask_agg="psum", wall_ms=wall[0],
+         device_busy_share=prof["device_ms"] / wall[0],
+         seconds=seconds["profile"], **prof)
+
+    # one step of the weights path, from the same state and optimizer
+    t_weights = time.perf_counter()
+    tr.step_fn = make_train_step(cfg, opt, mask_agg="weights")
+    tr.mask_agg = "weights"
+    build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    rec = tr.run(1)[-1]
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    want_w = {"flash_attention": cfg.n_layers, "fused_adam": 1}
+    check(launches == want_w, f"weights step: launches {launches}, "
+          f"want {want_w}")
+    check(bool(np.isfinite(rec["loss"])), f"weights step: loss {rec['loss']}")
+    emit("train", mask_agg="weights", step=rec["step"], wall_ms=wall * 1e3,
+         tokens_per_s=B * S / wall, c=rec["c"], n=rec["n"], loss=rec["loss"],
+         launches=launches, leaves=len(tree.leaves(params)),
+         psum_max_memory_allocated=peak,
+         seconds=dict(seconds, weights_step=time.perf_counter() - t_weights))
+    del tr, opt, params
+    torch.cuda.empty_cache()
+    return totals
+
+
+def _scaled_err(torch, got, want):
+    """Per leaf: max |got - want| over max |want| (the leaf's own scale)."""
+    out = []
+    for a, b in zip(got, want):
+        scale = b.abs().max().clamp(min=1e-30)
+        out.append(((a - b).abs().max() / scale).item())
+    return max(out)
+
+
+PARITY_TOL = {"loss": 1e-4, "grad": 1e-4, "m": 1e-4, "v": 3e-4}
+
+
+def phase_train_parity(torch, cfg_full):
+    from repro_torch import tree
+    from repro_torch.cluster.simulator import ClusterSim
+    from repro_torch.core.controller import StaticCutoffController
+    from repro_torch.models import model as M
+    from repro_torch.optim import cosine_schedule
+
+    cfg = dataclasses.replace(cfg_full, n_layers=2, dtype="float32")
+    W, S, B, n_steps = 4, 32, 8, 2
+    p_cpu = M.init_model(cfg, torch.Generator().manual_seed(SEED + 3),
+                         device="cpu", dtype=torch.float32)
+    p_gpu = cast(p_cpu, "cuda", torch.float32)
+    runs, seconds = {}, {}
+    for dev, params in (("cpu", p_cpu), ("cuda", p_gpu)):
+        t0 = time.perf_counter()
+        grads = []
+        tr, _ = _train_setup(
+            torch, cfg, params, n_workers=W, seq=S, batch=B,
+            controller=StaticCutoffController(W, cutoff=3),
+            timer=ClusterSim(n_workers=W, n_nodes=2, seed=7), record=grads)
+        hist = tr.run(n_steps)
+        runs[dev] = (hist, grads, cast(tr.state["params"], "cpu",
+                                       torch.float32),
+                     cast({k: tr.state["opt"][k] for k in ("m", "v")}, "cpu",
+                          torch.float32))
+        seconds[dev] = time.perf_counter() - t0
+    (h_c, g_c, p_c, o_c), (h_g, g_g, p_g, o_g) = runs["cpu"], runs["cuda"]
+    check([(h["c"], h["clock"]) for h in h_c]
+          == [(h["c"], h["clock"]) for h in h_g], "cutoffs/clock differ")
+    loss_err = max(abs(a["loss"] - b["loss"]) for a, b in zip(h_c, h_g))
+    grad_err = max(_scaled_err(torch, tree.leaves(a), tree.leaves(b))
+                   for a, b in zip(g_g, g_c))
+    m_err = _scaled_err(torch, tree.leaves(o_g["m"]), tree.leaves(o_c["m"]))
+    v_err = _scaled_err(torch, tree.leaves(o_g["v"]), tree.leaves(o_c["v"]))
+    # Adam's first steps move each entry by about lr times the sign of its
+    # gradient, whatever the gradient's size: where |g| sits at rounding
+    # noise the two devices may disagree on that sign, so p is held tightly
+    # only where every step's |g| is above 1e-3 of its leaf's largest, and
+    # within 2 lr per step elsewhere.
+    sched = cosine_schedule(3e-4, 2, 20)
+    lr_sum = float(sum(sched(s) for s in range(n_steps)))
+    tight_tol, loose_tol = 0.05 * lr_sum, 2.0 * lr_sum
+    tight_err = loose_err = 0.0
+    n_tight = n_all = 0
+    flat_g = [tree.leaves(g) for g in g_c]
+    for i, (a, b) in enumerate(zip(tree.leaves(p_g), tree.leaves(p_c))):
+        sure = torch.ones_like(b, dtype=torch.bool)
+        for gs in flat_g:
+            g = gs[i]
+            sure &= g.abs() > 1e-3 * g.abs().max()
+        d = (a - b).abs()
+        if bool(sure.any()):
+            tight_err = max(tight_err, d[sure].max().item())
+        loose_err = max(loose_err, d.max().item())
+        n_tight += int(sure.sum())
+        n_all += d.numel()
+    rec = {"dtype": "float32", "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "workers": W, "seq": S, "batch": B,
+           "steps": n_steps, "c": [h["c"] for h in h_g],
+           "loss_cpu": [h["loss"] for h in h_c],
+           "loss_cuda": [h["loss"] for h in h_g],
+           "loss_max_abs_err": loss_err, "grad_scaled_err": grad_err,
+           "m_scaled_err": m_err, "v_scaled_err": v_err,
+           "p_tight_max_abs_err": tight_err, "p_tight_tol": tight_tol,
+           "p_tight_share": n_tight / n_all,
+           "p_max_abs_err": loose_err, "p_tol": loose_tol, "tol": PARITY_TOL,
+           "seconds": seconds}
+    emit("train_parity", **rec)
+    check(loss_err <= PARITY_TOL["loss"], f"loss differs by {loss_err}")
+    check(grad_err <= PARITY_TOL["grad"],
+          f"aggregated gradient differs by {grad_err} of its scale")
+    check(m_err <= PARITY_TOL["m"], f"m differs by {m_err} of its scale")
+    check(v_err <= PARITY_TOL["v"], f"v differs by {v_err} of its scale")
+    check(tight_err <= tight_tol, f"p differs by {tight_err} > {tight_tol} "
+          f"where |g| is well above noise")
+    check(loose_err <= loose_tol, f"p differs by {loose_err} > {loose_tol}")
+
+
+def timed(seconds, name, fn, *args):
+    """Run one phase and keep its wall time under ``name``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    seconds[name] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch import tree
     from repro_torch.configs.base import get_config
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_num_threads(8)
 
-    phase_build()
-    flash = phase_flash(torch)
+    sec = {"start": time.perf_counter() - t_start}
+    timed(sec, "build", phase_build)
+    flash = timed(sec, "flash_attention", phase_flash, torch)
     cfg = get_config("qwen2-0.5b")
-    params_f32 = init_weights(torch, cfg)
-    launches = phase_serve(torch, cfg, params_f32)
-    phase_parity(torch, cfg, params_f32)
+    params_f32 = timed(sec, "init_weights", init_weights, torch, cfg)
+    serve_launches = timed(sec, "serve", phase_serve, torch, cfg, params_f32)
+    timed(sec, "serve_parity", phase_parity, torch, cfg, params_f32)
+    agg, agg_err = timed(sec, "masked_grad_agg", phase_masked_agg, torch)
+    shapes = [tuple(x.shape) for x in tree.leaves(params_f32)]
+    adam, adam_err = timed(sec, "fused_adam", phase_fused_adam, torch, shapes)
+    train_launches = timed(sec, "train", phase_train, torch, cfg, params_f32)
+    del params_f32
+    timed(sec, "train_parity", phase_train_parity, torch, cfg)
+    emit("seconds", **sec, total=time.perf_counter() - t_start)
+
+    def launches(name):
+        by_path = {"serve": serve_launches.get(name, 0),
+                   "train_psum_5_steps": train_launches.get(name, 0)}
+        return sum(by_path.values()), by_path
 
     head = flash[HEADLINE_CASE]
-    print(json.dumps({"kernels": [{
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:93",
-        "launches": launches.get("flash_attention", 0),
-        "max_abs_err": max(r["max_abs_err"] for r in flash.values()),
-        "ms": head["ms"], "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"], "case": HEADLINE_CASE}]}),
-        flush=True)
+    agg_head, adam_head = agg[AGG_HEADLINE], adam[ADAM_HEADLINE]
+    rows = []
+    for name, replaces, err, rec, case in (
+            ("flash_attention", "src/repro/kernels/flash_attention.py:93",
+             max(r["max_abs_err"] for r in flash.values()), head,
+             HEADLINE_CASE),
+            ("masked_grad_agg", "src/repro/kernels/masked_grad_agg.py:32",
+             agg_err, agg_head, AGG_HEADLINE),
+            ("fused_adam", "src/repro/kernels/fused_adam.py:40", adam_err,
+             adam_head, ADAM_HEADLINE)):
+        total, by_path = launches(name)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces, "launches": total,
+            "launches_by_path": by_path, "max_abs_err": err,
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": rec["library_ms"], "case": case})
+    print(json.dumps({"kernels": rows}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

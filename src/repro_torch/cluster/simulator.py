@@ -1,0 +1,159 @@
+"""Cluster run-time simulator (a copy of ``repro.cluster.simulator``).
+
+The port keeps its own copy of the numpy-only ``ClusterSim``, the
+``microbatch_progress`` query and the presets, so that it never imports the
+JAX package; the same seed gives the same runtimes.  The churn, overlay
+and multi-tenant layers are not copied yet.
+
+Generates joint worker runtimes with the phenomenology the paper observes on
+its real clusters (Fig. 2): machine-correlated slowdowns (workers share
+nodes), time-correlated regimes (a slow node persisting for ~60 iterations,
+then equilibrating), contention periods, and heavy-tailed per-worker
+straggler spikes.  On real hardware the same interface is backed by
+``time.monotonic()`` measurements per host; the simulator is the stand-in
+the CPU-only container uses for end-to-end runs and benchmarks.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List
+
+import numpy as np
+
+
+@dataclass
+class Regime:
+    name: str
+    node_mult: np.ndarray      # (n_nodes,) multiplicative slowdown
+    extra_noise: float = 0.0   # additional lognormal sigma
+
+
+@dataclass
+class ClusterSim:
+    """Regime-switching, node-correlated runtime generator."""
+    n_workers: int
+    n_nodes: int = 4
+    base_mean: float = 1.0
+    worker_hetero: float = 0.15   # fixed per-worker speed spread
+    noise_sigma: float = 0.07     # iid lognormal noise
+    ar_rho: float = 0.9           # AR(1) node-load persistence
+    ar_sigma: float = 0.05
+    spike_prob: float = 0.015     # heavy-tail straggler probability
+    spike_scale: float = 0.8
+    regime_stay: float = 0.985    # Markov chain self-transition
+    seed: int = 0
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        self._rng = rng
+        # node assignment: contiguous groups (like cores on a machine)
+        sizes = np.full(self.n_nodes, self.n_workers // self.n_nodes)
+        sizes[: self.n_workers % self.n_nodes] += 1
+        self.node_of = np.repeat(np.arange(self.n_nodes), sizes)
+        self.mu = self.base_mean * (
+            1.0 + self.worker_hetero * (rng.uniform(size=self.n_workers)
+                                        - 0.3))
+        self.regimes = self._make_regimes()
+        self._state = rng.integers(len(self.regimes))
+        self._load = np.zeros(self.n_nodes)
+        self.t = 0
+
+    def _make_regimes(self) -> List[Regime]:
+        ones = np.ones(self.n_nodes)
+        regs = [Regime("uniform", ones.copy())]
+        for k in range(self.n_nodes):
+            m = ones.copy()
+            m[k] = 1.9
+            regs.append(Regime(f"slow_node_{k}", m))
+        regs.append(Regime("contended", ones * 1.35, extra_noise=0.12))
+        return regs
+
+    # ------------------------------------------------------------------
+    def step(self) -> np.ndarray:
+        """One SGD iteration's joint runtimes (n_workers,)."""
+        rng = self._rng
+        if rng.uniform() > self.regime_stay:
+            self._state = rng.integers(len(self.regimes))
+        reg = self.regimes[self._state]
+        self._load = (self.ar_rho * self._load
+                      + self.ar_sigma * rng.standard_normal(self.n_nodes))
+        node_factor = reg.node_mult * np.exp(self._load)
+        sigma = self.noise_sigma + reg.extra_noise
+        noise = np.exp(sigma * rng.standard_normal(self.n_workers)
+                       - 0.5 * sigma ** 2)
+        spikes = np.where(rng.uniform(size=self.n_workers) < self.spike_prob,
+                          1.0 + rng.exponential(self.spike_scale,
+                                                self.n_workers), 1.0)
+        t = self.mu * node_factor[self.node_of] * noise * spikes
+        self.t += 1
+        return t
+
+    def run(self, n_steps: int) -> np.ndarray:
+        return np.stack([self.step() for _ in range(n_steps)])
+
+    @property
+    def regime_name(self) -> str:
+        return self.regimes[self._state].name
+
+
+# ---------------------------------------------------------------------------
+# Progress query: partial work completed by a wall-clock deadline.
+# ---------------------------------------------------------------------------
+
+
+def microbatch_progress(times, t: float, n_micro: int) -> np.ndarray:
+    """Fraction of ``n_micro`` microbatches each worker finishes by time ``t``.
+
+    ``times`` are full-step runtimes (any width — a ClusterSim row, a
+    ChurnSim active-set row, or a measured vector); a worker's microbatches
+    are assumed uniform across its step, so worker w completes
+    ``floor(n_micro * t / times[w])`` of them by the deadline, capped at
+    ``n_micro``.  The returned fractions are exact multiples of
+    ``1 / n_micro`` — the granularity anytime-SGD partial gradient sums
+    actually come in (a worker cannot ship half a microbatch) — and a
+    worker with ``times[w] <= t`` returns exactly 1.0.
+
+    This is the query the JAX package's ``AnytimeController``
+    turns a cutoff time into a per-worker f32 contribution vector with.
+    """
+    if n_micro < 1:
+        raise ValueError(f"n_micro must be >= 1, got {n_micro}")
+    times = np.asarray(times, np.float64)
+    frac = np.clip(t / np.maximum(times, 1e-300), 0.0, 1.0)
+    # the 1e-9 guard keeps an exact k/n_micro ratio from flooring to k-1
+    return np.floor(frac * n_micro + 1e-9) / float(n_micro)
+
+
+# ---------------------------------------------------------------------------
+# Presets matching the paper's two clusters.
+# ---------------------------------------------------------------------------
+
+
+def paper_cluster_158(seed: int = 0, n_workers: int = 158) -> ClusterSim:
+    """4 nodes x 40 Xeon cores, 1 PS + 1 spare => 158 workers (paper §4.1).
+
+    Calibrated near the paper's measured moments (mean 1.057 s, std 0.393 s).
+    ``n_workers`` scales the same phenomenology down for CPU-budget
+    end-to-end tests (node count and per-worker moments unchanged).
+    """
+    return ClusterSim(n_workers=n_workers, n_nodes=4, base_mean=1.0,
+                      worker_hetero=0.15, noise_sigma=0.07,
+                      spike_prob=0.02, spike_scale=0.9, seed=seed)
+
+
+def cray_xc40_2175(seed: int = 0) -> ClusterSim:
+    """32 KNL nodes x 68 logical cores, minus the PS => 2175 workers."""
+    return ClusterSim(n_workers=2175, n_nodes=32, base_mean=1.0,
+                      worker_hetero=0.1, noise_sigma=0.05,
+                      spike_prob=0.01, spike_scale=0.7,
+                      regime_stay=0.99, seed=seed)
+
+
+def tpu_pod_hosts(n_hosts: int = 64, seed: int = 0) -> ClusterSim:
+    """Per-host step-time jitter for a TPU pod (input pipeline + DCN):
+    weaker heterogeneity, rarer spikes — the regime the controller sees when
+    driving the masked-psum cutoff on the production mesh."""
+    return ClusterSim(n_workers=n_hosts, n_nodes=max(2, n_hosts // 16),
+                      base_mean=1.0, worker_hetero=0.04, noise_sigma=0.03,
+                      spike_prob=0.01, spike_scale=1.5, regime_stay=0.995,
+                      seed=seed)

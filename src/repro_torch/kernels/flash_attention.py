@@ -101,3 +101,30 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     if q.device.type == "cpu":
         return reference_attention(q, k, v, causal=causal, window=window)
     raise ValueError(f"flash_attention: no path for device {q.device}")
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with a gradient, for training.
+
+    The forward is :func:`flash_attention` (the Hopper kernel on the card).
+    The backward recomputes the plain ``reference_attention`` from the saved
+    q, k, v and differentiates it: the JAX package has no backward kernel
+    either (its training attention is plain jnp), so a Hopper backward is
+    later work.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return flash_attention(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out = reference_attention(*qkv, causal=ctx.causal,
+                                      window=ctx.window)
+            dq, dk, dv = torch.autograd.grad(out, qkv, grad_out)
+        return dq, dk, dv, None, None

@@ -37,3 +37,29 @@ def reference_attention(q, k, v, *, causal=True, window=0):
     a = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskh->bqkgh", a, v.float())
     return o.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def reference_adam(p, g, m, v, scalars, *, b1=0.9, b2=0.999, eps=1e-8,
+                   wd=0.0):
+    """One AdamW step, the contract of ``fused_adam``; returns new tensors.
+
+    scalars: ``(lr, 1 - b1**t, 1 - b2**t)`` as host floats (f32 values).
+    p and g in any float dtype, m and v f32; the result p' keeps p's dtype.
+    """
+    lr, bc1, bc2 = (float(s) for s in scalars)
+    gf = g.float()
+    m_new = b1 * m + (1 - b1) * gf
+    v_new = b2 * v + (1 - b2) * gf * gf
+    up = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
+    if wd:
+        up = up + wd * p.float()
+    return (p.float() - lr * up).to(p.dtype), m_new, v_new
+
+
+def reference_masked_agg(grads, mask):
+    """grads (W, N), mask (W, 1) -> (1, N): the ``masked_grad_agg`` contract,
+    ``sum_w m_w g_w / max(sum m, 1)`` in f32, out in the grads' dtype."""
+    m = mask.float()
+    c = torch.clamp(torch.sum(m), min=1.0)
+    return (torch.sum(grads.float() * m, dim=0, keepdim=True) / c
+            ).to(grads.dtype)

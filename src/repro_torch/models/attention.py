@@ -2,14 +2,16 @@
 
 Twin of ``repro.models.attention`` on one device (no sequence sharding).
 Prefill and decode reach the Hopper flash-attention kernel through
-``kernels.ops.attention``; ``attn_core`` is the plain path with explicit
-positions and logit softcap, for the cases the kernel does not take.
+``kernels.ops.attention``, training through its autograd Function
+``FlashAttention``; ``attn_core`` is the plain path with explicit positions
+and logit softcap, for the cases the kernel does not take.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import FlashAttention
 from repro_torch.models import layers as L
 
 NEG_INF = -1e30
@@ -64,12 +66,19 @@ def attn_core(q, k, v, qpos, kpos, *, causal=True, window=0, softcap=0.0):
 
 
 def attention(q, k, v, *, causal=True, window=0, softcap=0.0):
-    """Self-attention over a fresh sequence (positions 0..S-1)."""
+    """Self-attention over a fresh sequence (positions 0..S-1).
+
+    With grad enabled on q, k or v (training) the kernel runs through
+    ``FlashAttention``, whose backward is the plain attention's.
+    """
     if softcap:
         S = q.shape[1]
         pos = torch.arange(S, device=q.device)
         return attn_core(q, k, v, pos.expand(q.shape[0], S), pos,
                          causal=causal, window=window, softcap=softcap)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window)
     return ops.attention(q, k, v, causal=causal, window=window)
 
 

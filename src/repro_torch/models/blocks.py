@@ -3,6 +3,7 @@
 Twin of ``repro.models.blocks`` for the dense family.  Contract:
 ``apply_block(cfg, spec, params, x, ctx, cache) -> (x, cache')``
 
+  * train:   cache None -> None (nothing is cached)
   * prefill: cache None -> freshly built cache {"attn": {"k", "v"}}
   * decode:  cache in   -> the same cache, written in place at ``ctx.pos``
 """
@@ -22,7 +23,7 @@ class LayerSpec:
 
 
 class Ctx(NamedTuple):
-    mode: str                      # prefill | decode
+    mode: str                      # train | prefill | decode
     positions: Any                 # (B, S) int
     pos: Optional[int] = None      # decode: host int cache write position
 
@@ -39,7 +40,7 @@ def _attn_sublayer(cfg, p, x, ctx, cache, *, window: int):
     else:
         y = A.attention(q, k, v, causal=True, window=window,
                         softcap=cfg.attn_logit_softcap)
-        cache = {"k": k, "v": v}
+        cache = {"k": k, "v": v} if ctx.mode == "prefill" else None
     y = y.reshape(B, Sx, cfg.qkv_dim) @ p["wo"]
     if "bo" in p:
         y = y + p["bo"]
@@ -59,4 +60,4 @@ def apply_block(cfg, spec: LayerSpec, p, x, ctx: Ctx, cache):
     x = x + y
     h = L.apply_norm(cfg, p["norm2"], x)
     x = x + L.apply_mlp(cfg, p["mlp"], h)
-    return x, {"attn": attn_cache}
+    return x, ({"attn": attn_cache} if attn_cache is not None else None)

@@ -1,4 +1,4 @@
-"""Model assembly: layer specs, init, prefill/decode entry points.
+"""Model assembly: layer specs, init, train/prefill/decode entry points.
 
 Twin of ``repro.models.model`` for the dense LM family on one device.
 Where JAX stacks the layers of a segment and runs them under
@@ -169,15 +169,24 @@ def lm_logits(cfg, params, x):
 
 def forward(cfg, params, batch, mode: str = "prefill", caches=None,
             pos=None):
-    """Prefill or decode.
+    """Train, prefill or decode.
 
-    batch: tokens (B, S) and positions (B, S).  Prefill attends over the
-    fresh sequence with positions 0..S-1 (the flash kernel's aligned-suffix
-    rule); decode has S == 1, a host int ``pos`` and ``caches``.
-    Returns (logits, caches).
+    batch: tokens (B, S) and positions (B, S).  RoPE reads
+    ``batch["positions"]``, as the JAX forward does, but the attention mask
+    of train and prefill assumes the positions are 0..S-1 (the flash
+    kernel's aligned-suffix rule), which every caller of the port gives
+    (``SyntheticTokens`` and the serving engine).  Decode has S == 1, a host
+    int ``pos`` and ``caches``.
+
+    Returns (logits, caches, aux): train gives the full (B, S, V) logits
+    and no caches; prefill gives the last position's logits (B, 1, V) and
+    fresh caches; decode the next logits and the caches written in place.
+    ``aux`` is the auxiliary loss, 0 for the dense family.  The JAX forward
+    rematerializes each layer in training; at the port's sizes (one
+    H100, 80 GB) the activations fit, so nothing is recomputed.
     """
-    if mode not in ("prefill", "decode"):
-        raise ValueError(f"mode {mode!r}: the port serves prefill and decode")
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode {mode!r}: want train, prefill or decode")
     if cfg.is_encoder_decoder or "patch_embeds" in batch:
         raise NotImplementedError(
             "encoder-decoder and vision inputs are not ported yet")
@@ -193,11 +202,49 @@ def forward(cfg, params, batch, mode: str = "prefill", caches=None,
         # serving needs the last position's logits only: slice BEFORE the
         # head so the (B, S, V) logits tensor never materializes
         x = x[:, -1:]
-    return lm_logits(cfg, params, x), new_caches
+    aux = x.new_zeros((), dtype=torch.float32)
+    return (lm_logits(cfg, params, x),
+            None if mode == "train" else new_caches, aux)
+
+
+def _ce_sum_dense(logits, labels, weights=None):
+    """Sum over tokens of the cross-entropy, in f32, each example's tokens
+    weighted by ``weights`` (B,) when given."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    ce = lse - ll
+    if weights is not None:
+        ce = ce * weights.float()[:, None].expand(ce.shape)
+    return torch.sum(ce)
+
+
+def cross_entropy(logits, labels, weights=None):
+    """Mean CE with optional per-example/token weights (the cutoff mask).
+
+    The paper's Alg. 1 line 29 normalization: sum(w * ce) / sum(w), i.e.
+    the update averages over *included* workers only.
+    """
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    ce = lse - ll
+    if weights is None:
+        return torch.mean(ce)
+    w = weights.float().reshape(
+        tuple(weights.shape) + (1,) * (ce.dim() - weights.dim())
+    ).expand(ce.shape)
+    return torch.sum(w * ce) / torch.clamp(torch.sum(w), min=1e-6)
+
+
+def train_loss(cfg, params, batch, aux_coef: float = 0.01):
+    logits, _, aux = forward(cfg, params, batch, mode="train")
+    loss = cross_entropy(logits, batch["labels"], batch.get("weights"))
+    return loss + aux_coef * aux, {"ce": loss, "aux": aux}
 
 
 def prefill(cfg, params, batch):
-    logits, caches = forward(cfg, params, batch, mode="prefill")
+    logits, caches, _ = forward(cfg, params, batch, mode="prefill")
     return logits[:, -1], caches
 
 
@@ -209,7 +256,9 @@ def decode_step(cfg, params, tokens, pos: int, caches, positions=None):
         positions = torch.full((B, 1), pos, dtype=torch.int64,
                                device=tokens.device)
     batch = {"tokens": tokens, "positions": positions}
-    return forward(cfg, params, batch, mode="decode", caches=caches, pos=pos)
+    logits, caches, _ = forward(cfg, params, batch, mode="decode",
+                                caches=caches, pos=pos)
+    return logits, caches
 
 
 def pad_caches(caches, target_len: int):

@@ -12,6 +12,8 @@ after ``jax.tree.map(np.asarray, params)`` and returns the dicts that
 * A tied head reuses ``embed.table``; an untied one is ``lm_head.w``
   ``(d_model, vocab)``.  The qwen2 QKV biases ``bq/bk/bv`` come along with
   the rest of the attention dict.
+
+``state_from_jax`` carries a whole train state ``{"params", "opt"}``.
 """
 from __future__ import annotations
 
@@ -54,3 +56,19 @@ def from_jax(cfg, params_np, device=None):
     if not cfg.tie_embeddings:
         params["lm_head"] = _tree(params_np["lm_head"], device)
     return params
+
+
+def state_from_jax(cfg, state_np, device=None):
+    """A JAX train state ``{"params", "opt"}`` (numpy leaves) -> the port's.
+
+    Every optimizer tree with the params' structure (Adam's ``m`` and ``v``,
+    momentum's ``mu``) is carried like the params; ``step`` becomes a host
+    int, as the port's optimizers keep it.
+    """
+    opt = {}
+    for name, val in state_np["opt"].items():
+        if name == "step":
+            opt[name] = int(np.asarray(val))
+        else:
+            opt[name] = from_jax(cfg, val, device)
+    return {"params": from_jax(cfg, state_np["params"], device), "opt": opt}
