@@ -40,6 +40,22 @@ Phases, one JSON line each; any failure exits non-zero:
   train_parity   the same psum step at full width and 2 layers, f32, W = 4,
                  2 steps, on the CPU (plain versions) and on the card
                  (kernels): loss, aggregated gradient, m, v and p
+  mlstm_chunk    the kernel against its plain version (the chunked
+                 linear_recurrence) and the sequential oracle on the card,
+                 for y and for a decode step taken from the returned state:
+                 xlstm-350m's serve shape (B 4, S 128, H 4, hd 512, bf16),
+                 ragged S 100, S 300, S 1, f32, hd 16/32/64 and extreme
+                 gates; kernel / plain ms and the bound at the serve shape
+  serve_xlstm    full-width xlstm-350m (bf16, seeded init) through
+                 ServeEngine.generate: 4 prompts x 128 tokens, 32 greedy new
+                 tokens; asserts 21 mlstm_chunk launches (the mLSTM
+                 prefills) and no flash_attention launch
+  serve_xlstm_profile
+                 the device's busy share of a short xLSTM request
+  serve_xlstm_parity
+                 the same weights in f32 at full width and 8 layers (one
+                 7 mLSTM + 1 sLSTM period), served on the CPU (plain path)
+                 and on the card (kernel): logits and ids must agree
 
 Then the wall seconds of every phase, a ``{"kernels": [...]}`` summary
 line, the card's name and power limit from nvidia-smi, and
@@ -80,6 +96,23 @@ FLASH_CASES = [
     ("f32_s256", 2, 256, 256, 14, 2, 64, "float32", True, 0, 0),
     ("hd128_s256", 2, 256, 256, 8, 2, 128, "bfloat16", True, 0, 0),
 ]
+# (name, B, S, H, hd, dtype, gates): xlstm-350m's mLSTM has 4 heads of 512
+MLSTM_CASES = [
+    ("serve_s128", 4, 128, 4, 512, "bfloat16", "normal"),
+    ("ragged_s100", 4, 100, 4, 512, "bfloat16", "normal"),
+    ("s300", 2, 300, 4, 512, "bfloat16", "normal"),
+    ("s1", 4, 1, 4, 512, "bfloat16", "normal"),
+    ("f32_s128", 4, 128, 4, 512, "float32", "normal"),
+    ("hd16_s77", 2, 77, 4, 16, "float32", "normal"),
+    ("hd32_s128", 4, 128, 4, 32, "bfloat16", "normal"),
+    ("hd64_s130", 2, 130, 4, 64, "bfloat16", "normal"),
+    ("extreme_gates", 4, 128, 4, 512, "bfloat16", "extreme"),
+]
+MLSTM_HEADLINE = "serve_s128"
+# kernel vs plain and vs the oracle, y and a decode step: atol = rtol, as
+# tests/test_kernels.py holds the Pallas kernel (both sides compute in f32
+# from the same inputs; they differ in chunking and summation order)
+MLSTM_TOL = 5e-4
 HEADLINE_CASE = "prefill_s128"   # the serve prompt's shape
 AGG_HEADLINE = "full_w8_f32"      # the train step's (8, N) buffer
 ADAM_HEADLINE = "full_bfloat16"   # the train step's leaves
@@ -803,6 +836,210 @@ def phase_train_parity(torch, cfg_full):
     check(loose_err <= loose_tol, f"p differs by {loose_err} > {loose_tol}")
 
 
+def _mlstm_inputs(torch, B, S, H, hd, dtname, gates, gen):
+    """q/k/v in ``dtname`` and f32 log gates, as the mLSTM block makes
+    them: g = log_sigmoid(forget logits), i = the input logits."""
+    import torch.nn.functional as F
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    dt = getattr(torch, dtname)
+    q, k = (0.5 * randn(B, S, H, hd)).to(dt), (0.5 * randn(B, S, H, hd)).to(dt)
+    v = randn(B, S, H, hd).to(dt)
+    if gates == "extreme":   # forget logits -10 or +10, input up to 10
+        f = torch.where(randn(B, S, H) > 0, 10.0, -10.0)
+        i = 20.0 * torch.rand((B, S, H), generator=gen, device="cuda") - 10.0
+    else:
+        f, i = randn(B, S, H) + 3.0, 0.5 * randn(B, S, H)
+    return q, k, v, F.logsigmoid(f), i
+
+
+def mlstm_ops(B, S, H, hd, chunk):
+    """Operations of the chunkwise algorithm at ``chunk``: per (b, h) and
+    chunk of L positions, q k^T and (W q k^T) v over the L(L+1)/2 causal
+    pairs, and the two (L, hd) x (hd, hd) products (q C with the entering
+    state, which is zero for the first chunk, and the state update)."""
+    total = 0
+    for c0 in range(0, S, chunk):
+        L = min(chunk, S - c0)
+        total += L * (L + 1) * 2 * hd + 2 * L * hd * hd * (2 if c0 else 1)
+    return B * H * total
+
+
+def phase_mlstm(torch):
+    from repro_torch.kernels.mlstm_chunk import CHUNK, mlstm_chunk
+    from repro_torch.kernels.mlstm_plain import linear_recurrence
+    from repro_torch.kernels.ref import reference_mlstm
+    from repro_torch.models.ssm import recurrence_step
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    side = torch.cuda.Stream()
+    results = {}
+    for name, B, S, H, hd, dtname, gates in MLSTM_CASES:
+        q, k, v, g, i = _mlstm_inputs(torch, B, S + 1, H, hd, dtname, gates,
+                                      gen)
+        head = [t[:, :S] for t in (q, k, v, g, i)]
+        step = [t[:, S] for t in (q, k, v, g, i)]
+        y, st = mlstm_chunk(*head)
+        want, pst = linear_recurrence(*head)
+        oracle = reference_mlstm(q, k, v, g, i)
+        ys, _ = recurrence_step(st, *step)
+        ws, _ = recurrence_step(pst, *step)
+        torch.cuda.synchronize()
+        check(y.shape == (B, S, H, hd) and y.dtype == torch.float32
+              and st.C.shape == (B, H, hd, hd) and st.n.shape == (B, H, hd)
+              and st.m.shape == (B, H) and st.loga.shape == (B, H),
+              f"mlstm {name}: output {tuple(y.shape)} {y.dtype}, state "
+              f"{[tuple(t.shape) for t in st]}")
+        check(bool(torch.isfinite(y).all()) and bool(torch.isfinite(ys).all()),
+              f"mlstm {name}: non-finite output")
+        errs = {}
+        for key, got, exp in (("y", y, want), ("step", ys, ws),
+                              ("y_oracle", y, oracle[:, :S]),
+                              ("step_oracle", ys, oracle[:, S])):
+            ex = _allclose_excess(torch, got, exp, MLSTM_TOL, MLSTM_TOL).item()
+            check(ex <= MLSTM_TOL, f"mlstm {name}: {key} off by {ex} beyond "
+                  f"rtol > {MLSTM_TOL}")
+            errs[key] = (got - exp).abs().max().item()
+        loga_err = (st.loga - pst.loga).abs().max().item()
+        check(loga_err <= MLSTM_TOL * (1 + pst.loga.abs().max().item()),
+              f"mlstm {name}: loga off by {loga_err}")
+        rec = {"case": name, "shape": [B, S, H, hd], "dtype": dtname,
+               "gates": gates, "max_abs_err": errs["y"],
+               "step_max_abs_err": errs["step"],
+               "oracle_max_abs_err": errs["y_oracle"],
+               "step_oracle_max_abs_err": errs["step_oracle"],
+               "y_max_abs": oracle[:, :S].abs().max().item(),
+               "tol": MLSTM_TOL}
+        if name == MLSTM_HEADLINE:
+            times = {}
+            for label, fn in (("ms", lambda: mlstm_chunk(*head)),
+                              ("plain_ms", lambda: linear_recurrence(*head))):
+                times[label] = device_ms(torch, fn, side)
+                times["eager_" + label] = eager_ms(torch, fn)
+            elt = q.element_size()
+            nbytes = (3 * B * S * H * hd * elt + 2 * B * S * H * 4   # in
+                      + B * S * H * hd * 4                           # y
+                      + 4 * B * H * (hd * hd + hd + 2))              # state
+            ops = mlstm_ops(B, S, H, hd, CHUNK)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / PEAK_OPS["float32"] * 1e3   # f32 FMAs, CUDA cores
+            rec.update(times, library_ms=None,
+                       library="none: no single PyTorch call computes it",
+                       bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       bytes=nbytes, ops=ops, chunk=CHUNK)
+        results[name] = rec
+        emit("mlstm_chunk", **rec)
+        del q, k, v, g, i, head, step, y, st, want, pst, oracle
+    torch.cuda.empty_cache()
+    return results
+
+
+def init_xlstm(torch):
+    from repro_torch.configs.base import get_config
+
+    cfg = get_config("xlstm-350m")
+    return cfg, init_weights(torch, cfg)
+
+
+def phase_serve_xlstm(torch, cfg, params_f32):
+    from repro_torch import tree
+    from repro_torch.kernels import build
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import ServeEngine
+
+    B, S, n_new = 4, 128, 32
+    n_mlstm = sum(s.kind == "mlstm" for s in M.layer_specs(cfg))
+    params = cast(params_f32, "cuda", torch.bfloat16)
+    engine = ServeEngine(cfg, params, max_len=S + n_new)
+    prompts = np.random.default_rng(SEED + 5).integers(
+        0, cfg.vocab_size, size=(B, S), dtype=np.int32)
+    engine.generate(prompts, 2)   # warm-up: cuBLAS handles, allocator
+
+    torch.cuda.reset_peak_memory_stats()
+    build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    ids = engine.generate(prompts, n_new)       # ends in one .cpu() copy
+    gen_s = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    check(launches == {"mlstm_chunk": n_mlstm},
+          f"xlstm serve launched {launches}, want {{'mlstm_chunk': "
+          f"{n_mlstm}}} (the prefill of each mLSTM block, no attention)")
+    check(ids.shape == (B, n_new) and ids.dtype == np.int32,
+          f"ids {ids.shape} {ids.dtype}")
+    check(bool(np.all((ids >= 0) & (ids < cfg.vocab_size))),
+          "ids out of vocabulary range")
+    peak = torch.cuda.max_memory_allocated()
+
+    toks = torch.as_tensor(prompts, dtype=torch.int64, device="cuda")
+    batch = {"tokens": toks,
+             "positions": torch.arange(S, device="cuda").expand(B, S)}
+    with torch.inference_mode():
+        prefill_ms = eager_ms(torch, lambda: M.prefill(cfg, engine.params,
+                                                       batch), reps=3,
+                              warmup=1)
+    gen_ms = gen_s * 1e3
+    n_params = sum(x.numel() for x in tree.leaves(params))
+    emit("serve_xlstm", arch=cfg.name, dtype="bfloat16", batch=B, prompt=S,
+         n_new=n_new, params=n_params, mlstm_layers=n_mlstm,
+         launches=launches, generate_ms=gen_ms, prefill_ms=prefill_ms,
+         decode_ms_per_token=(gen_ms - prefill_ms) / n_new,
+         tokens_per_s=B * n_new / gen_s, max_memory_allocated=peak,
+         first_ids=ids[0, :8].tolist())
+
+    n_prof = 4
+    t0 = time.perf_counter()
+    engine.generate(prompts, n_prof)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    prof = device_profile(torch, lambda: engine.generate(prompts, n_prof))
+    emit("serve_xlstm_profile", n_new=n_prof, wall_ms=wall_ms,
+         device_busy_share=prof["device_ms"] / wall_ms, **prof)
+    del engine, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_xlstm_parity(torch, cfg_full, params_f32):
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import ServeEngine
+
+    n_layers = cfg_full.slstm_every   # one 7 mLSTM + 1 sLSTM period
+    cfg = dataclasses.replace(cfg_full, n_layers=n_layers, dtype="float32")
+    params = dict(params_f32, layers=params_f32["layers"][:n_layers])
+    S, n_new = 64, 8
+    prompt = np.random.default_rng(SEED + 6).integers(
+        0, cfg.vocab_size, size=(1, S), dtype=np.int32)
+    seconds = {}
+    cpu = ServeEngine(cfg, params, max_len=S + n_new, device="cpu")
+    gpu = ServeEngine(cfg, cast(params, "cuda", torch.float32),
+                      max_len=S + n_new)
+    logits, ids = {}, {}
+    for name, eng in (("cpu", cpu), ("cuda", gpu)):
+        t0 = time.perf_counter()
+        toks = torch.as_tensor(prompt, dtype=torch.int64, device=eng.device)
+        batch = {"tokens": toks,
+                 "positions": torch.arange(S, device=eng.device)[None]}
+        with torch.inference_mode():
+            logits[name] = M.prefill(cfg, eng.params, batch)[0].float().cpu()
+        ids[name] = eng.generate(prompt, n_new)
+        seconds[name] = time.perf_counter() - t0
+    err = (logits["cpu"] - logits["cuda"]).abs().max().item()
+    same = bool(np.array_equal(ids["cpu"], ids["cuda"]))
+    top2 = torch.topk(logits["cpu"][0], 2).values
+    emit("serve_xlstm_parity", dtype="float32", layers=n_layers, prompt=S,
+         n_new=n_new, logits_max_abs_err=err, tol=PARITY_LOGIT_ATOL,
+         logits_max_abs=logits["cpu"].abs().max().item(), ids_equal=same,
+         ids_cpu=ids["cpu"][0].tolist(), ids_cuda=ids["cuda"][0].tolist(),
+         first_logit_gap=(top2[0] - top2[1]).item(), seconds=seconds)
+    check(err <= PARITY_LOGIT_ATOL,
+          f"xlstm prefill logits differ by {err} > {PARITY_LOGIT_ATOL}")
+    check(same, "xlstm greedy ids differ between the CPU and the card")
+    del gpu
+    torch.cuda.empty_cache()
+
+
 def timed(seconds, name, fn, *args):
     """Run one phase and keep its wall time under ``name``."""
     t0 = time.perf_counter()
@@ -839,24 +1076,48 @@ def main() -> int:
     train_launches = timed(sec, "train", phase_train, torch, cfg, params_f32)
     del params_f32
     timed(sec, "train_parity", phase_train_parity, torch, cfg)
+    mlstm = timed(sec, "mlstm_chunk", phase_mlstm, torch)
+    xcfg, xparams = timed(sec, "init_xlstm", init_xlstm, torch)
+    xlstm_launches = timed(sec, "serve_xlstm", phase_serve_xlstm, torch,
+                           xcfg, xparams)
+    timed(sec, "serve_xlstm_parity", phase_xlstm_parity, torch, xcfg,
+          xparams)
+    del xparams
     emit("seconds", **sec, total=time.perf_counter() - t_start)
 
     def launches(name):
         by_path = {"serve": serve_launches.get(name, 0),
-                   "train_psum_5_steps": train_launches.get(name, 0)}
+                   "train_psum_5_steps": train_launches.get(name, 0),
+                   "serve_xlstm": xlstm_launches.get(name, 0)}
         return sum(by_path.values()), by_path
 
+    def worst(cases, head):
+        """max_abs_err over a grid of cases, the case that gave it (with the
+        output's largest magnitude there, where recorded) and the headline
+        case's own error."""
+        w = max(cases.values(), key=lambda r: r["max_abs_err"])
+        out = {"max_abs_err_case": w["case"],
+               "case_max_abs_err": cases[head]["max_abs_err"]}
+        if "y_max_abs" in w:
+            out["max_abs_err_y_max_abs"] = w["y_max_abs"]
+        return w["max_abs_err"], out
+
+    flash_err, flash_extra = worst(flash, HEADLINE_CASE)
+    mlstm_err, mlstm_extra = worst(mlstm, MLSTM_HEADLINE)
     head = flash[HEADLINE_CASE]
     agg_head, adam_head = agg[AGG_HEADLINE], adam[ADAM_HEADLINE]
     rows = []
-    for name, replaces, err, rec, case in (
+    # max_abs_err is the largest over each kernel's checked grid
+    for name, replaces, err, rec, case, extra in (
             ("flash_attention", "src/repro/kernels/flash_attention.py:93",
-             max(r["max_abs_err"] for r in flash.values()), head,
-             HEADLINE_CASE),
+             flash_err, head, HEADLINE_CASE, flash_extra),
             ("masked_grad_agg", "src/repro/kernels/masked_grad_agg.py:32",
-             agg_err, agg_head, AGG_HEADLINE),
+             agg_err, agg_head, AGG_HEADLINE, {}),
             ("fused_adam", "src/repro/kernels/fused_adam.py:40", adam_err,
-             adam_head, ADAM_HEADLINE)):
+             adam_head, ADAM_HEADLINE, {}),
+            ("mlstm_chunk", "src/repro/kernels/mlstm_chunk.py:87",
+             mlstm_err, mlstm[MLSTM_HEADLINE], MLSTM_HEADLINE,
+             mlstm_extra)):
         total, by_path = launches(name)
         rows.append({
             "name": name, "route": "cuda",
@@ -865,7 +1126,7 @@ def main() -> int:
             "launches_by_path": by_path, "max_abs_err": err,
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-            "library_ms": rec["library_ms"], "case": case})
+            "library_ms": rec["library_ms"], "case": case, **extra})
     print(json.dumps({"kernels": rows}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

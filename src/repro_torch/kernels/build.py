@@ -36,7 +36,8 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 #: kernel name -> its source under csrc/
 SOURCES = {"flash_attention": "flash_attention.cu",
            "masked_grad_agg": "masked_grad_agg.cu",
-           "fused_adam": "fused_adam.cu"}
+           "fused_adam": "fused_adam.cu",
+           "mlstm_chunk": "mlstm_chunk.cu"}
 
 #: kernel name -> launches since the last ``LAUNCHES.clear()``
 LAUNCHES: collections.Counter = collections.Counter()

@@ -1,0 +1,152 @@
+"""Plain version of ``mlstm_chunk``: the chunked stabilized linear recurrence.
+
+Twin of the local path of ``repro.models.ssm`` (``linear_recurrence`` and
+its chunk machinery).  The recurrence over chunk states
+
+    S_t = exp(g_t) * S_{t-1} + exp(i_t) * k_t v_t^T
+
+runs in chunkwise-parallel form: quadratic (attention-like) math inside a
+chunk and a sequential scan over chunk states.  Outputs are normalized and
+scaled by 1/sqrt(dq), as the xLSTM block (the only caller) asks.  The JAX
+module also shards the sequence over the "model" axis under the
+``train_sp`` layout; that branch waits for the port's multi-GPU layer
+(ROADMAP A.15).
+
+It lives in the kernels layer because it is what the ``mlstm_chunk``
+wrapper runs on CPU tensors and what ``chip_smoke.py`` holds the kernel
+against; ``models.ssm`` takes ``ScanState`` and ``combine`` from here for
+its decode step.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+
+NEG = -1e30
+
+
+class ScanState(NamedTuple):
+    """Stabilized recurrence state: true_C = C * exp(m); loga = log of the
+    total decay this state spans (identity: loga=0, m=NEG, C=n=0)."""
+    loga: torch.Tensor  # (..., h)
+    m: torch.Tensor     # (..., h)
+    C: torch.Tensor     # (..., h, dq, dv)
+    n: torch.Tensor     # (..., h, dq)
+
+
+def _bc(s, x):
+    return s.reshape(tuple(s.shape) + (1,) * (x.dim() - s.dim()))
+
+
+def _map(fn, state: ScanState) -> ScanState:
+    return ScanState(*(fn(t) for t in state))
+
+
+def state_identity(shape_hint: ScanState) -> ScanState:
+    return ScanState(
+        loga=torch.zeros_like(shape_hint.loga),
+        m=torch.full_like(shape_hint.m, NEG),
+        C=torch.zeros_like(shape_hint.C),
+        n=torch.zeros_like(shape_hint.n))
+
+
+def combine(s1: ScanState, s2: ScanState) -> ScanState:
+    """Associative combine: apply s1's span, then s2's."""
+    loga = s1.loga + s2.loga
+    m = torch.maximum(s1.m + s2.loga, s2.m)
+    a1 = torch.exp(s1.m + s2.loga - m)
+    a2 = torch.exp(s2.m - m)
+    return ScanState(
+        loga=loga, m=m,
+        C=s1.C * _bc(a1, s1.C) + s2.C * _bc(a2, s2.C),
+        n=s1.n * _bc(a1, s1.n) + s2.n * _bc(a2, s2.n))
+
+
+# ---------------------------------------------------------------------------
+# Chunk elements / outputs.
+# ---------------------------------------------------------------------------
+
+
+def _chunk_states(k, v, g, i) -> ScanState:
+    """Per-chunk recurrence elements.
+
+    k: (B, nc, c, h, dq); v: (B, nc, c, h, dv); g/i: (B, nc, c, h).
+    """
+    lg = torch.cumsum(g, dim=2)
+    tot = lg[:, :, -1]                        # (B, nc, h)
+    w = tot[:, :, None] - lg + i              # carry-to-chunk-end log weight
+    m_loc = torch.amax(w, dim=2)              # (B, nc, h)
+    sc = torch.exp(w - m_loc[:, :, None])
+    C = torch.einsum("bnchq,bnchv->bnhqv", sc[..., None] * k, v)
+    n = torch.einsum("bnch,bnchq->bnhq", sc, k)
+    return ScanState(loga=tot, m=m_loc, C=C, n=n)
+
+
+def _chunk_outputs(q, k, v, g, i, ent: ScanState):
+    """Normalized outputs for every position given the entering state of
+    each chunk."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    lg = torch.cumsum(g, dim=2)                          # (B,nc,c,h)
+    # intra-chunk log decay matrix D[t,s] = lg_t - lg_s + i_s (s <= t)
+    D = (lg[:, :, :, None, :] - lg[:, :, None, :, :]
+         + i[:, :, None, :, :])                          # (B,nc,t,s,h)
+    c = q.shape[2]
+    tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=q.device))
+    D = torch.where(tri[None, None, :, :, None], D,
+                    torch.full_like(D, NEG))
+    m_intra = torch.amax(D, dim=3)                       # (B,nc,t,h)
+    lg_e = lg + ent.m[:, :, None, :]                     # inter log scale
+    m_out = torch.maximum(lg_e, m_intra)
+    W = torch.exp(D - m_out[:, :, :, None, :])           # (B,nc,t,s,h)
+    qf = q.float()
+    dot = torch.einsum("bnthq,bnshq->bntsh", qf, k.float()) * scale
+    WS = W * dot
+    num = torch.einsum("bntsh,bnshv->bnthv", WS, v.float())
+    den = torch.sum(WS, dim=3)                           # (B,nc,t,h)
+    sc_e = torch.exp(lg_e - m_out)                       # (B,nc,t,h)
+    qC = torch.einsum("bnthq,bnhqv->bnthv", qf, ent.C) * scale
+    qn = torch.einsum("bnthq,bnhq->bnth", qf, ent.n) * scale
+    num = num + sc_e[..., None] * qC
+    den = den + sc_e * qn
+    den = torch.maximum(torch.abs(den), torch.exp(-m_out))
+    return num / den[..., None]
+
+
+def _local_scan(elems: ScanState):
+    """Sequential scan over the chunk dim; returns (entering, final)."""
+    carry = state_identity(_map(lambda t: t[:, 0], elems))
+    entering = []
+    for ci in range(elems.loga.shape[1]):
+        entering.append(carry)
+        carry = combine(carry, _map(lambda t: t[:, ci], elems))
+    stacked = ScanState(*(torch.stack(ts, dim=1) for ts in zip(*entering)))
+    return stacked, carry
+
+
+def linear_recurrence(q, k, v, g, i, *, chunk: int = 128,
+                      init_state: Optional[ScanState] = None):
+    """Normalized chunked linear recurrence over (B, S, h, d*) inputs.
+
+    Returns (y (B,S,h,dv) f32, final_state).  The chunk is ``chunk`` when it
+    divides S and S is longer, else the whole of S, as in JAX.
+    """
+    B, S, h, dq = q.shape
+    dv = v.shape[-1]
+    c = chunk if S % chunk == 0 and S > chunk else S
+    nc = S // c
+
+    def rs(t, d):
+        return t.reshape(B, nc, c, h, d)
+
+    qc, kc, vc = rs(q, dq), rs(k, dq), rs(v, dv)
+    gc = g.reshape(B, nc, c, h).float()
+    ic = i.reshape(B, nc, c, h).float()
+    elems = _chunk_states(kc.float(), vc.float(), gc, ic)
+    entering, final = _local_scan(elems)
+    if init_state is not None:
+        entering = combine(_map(lambda t: t[:, None], init_state), entering)
+        final = combine(init_state, final)
+    y = _chunk_outputs(qc, kc, vc, gc, ic, entering)
+    return y.reshape(B, S, h, dv), final

@@ -2,8 +2,9 @@
 
 The counterpart of ``repro.kernels.ops``, without a backend switch: a CPU
 tensor takes the plain version, a CUDA tensor the Hopper kernel.  Both
-follow the JAX kernel path's rules (f32 accumulation in the masked mean,
-f32 moments in Adam), so the CPU and the card compute the same function.
+follow the JAX kernel path's rules (f32 accumulation in the masked mean
+and the mLSTM, f32 moments in Adam), so the CPU and the card compute the
+same function.
 """
 from __future__ import annotations
 
@@ -14,11 +15,20 @@ from repro_torch import tree
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_adam import LeafTable, fused_adam_
 from repro_torch.kernels.masked_grad_agg import masked_grad_agg
+from repro_torch.kernels.mlstm_chunk import mlstm_chunk
 
 
 def attention(q, k, v, *, causal=True, window=0):
     """q: (B, Sq, H, hd); k/v: (B, Sk, KV, hd); aligned-suffix positions."""
     return flash_attention(q, k, v, causal=causal, window=window)
+
+
+def mlstm(q, k, v, g, i):
+    """Normalized mLSTM over q/k/v (B, S, H, hd) and f32 log gates g/i
+    (B, S, H) -> (y (B, S, H, hd) f32, final ``ScanState``).  JAX's
+    ``ops.mlstm`` returns y alone; the port's prefill also needs the state
+    for its decode cache."""
+    return mlstm_chunk(q, k, v, g, i)
 
 
 # ---------------------------------------------------------------------------

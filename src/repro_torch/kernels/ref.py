@@ -39,6 +39,36 @@ def reference_attention(q, k, v, *, causal=True, window=0):
     return o.reshape(B, Sq, H, hd).to(q.dtype)
 
 
+def reference_mlstm(q, k, v, g, i):
+    """Sequential stabilized mLSTM recurrence (the ``mlstm_chunk`` contract).
+
+    q/k/v: (B, S, H, hd); g/i: (B, S, H) log forget/input gates -> f32
+    output (B, S, H, hd).  One step per position, in f32: the oracle the
+    chunked forms are held to.
+    """
+    B, S, H, hd = q.shape
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+    C = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=dev)
+    n = torch.zeros((B, H, hd), dtype=torch.float32, device=dev)
+    m = torch.full((B, H), NEG_INF, dtype=torch.float32, device=dev)
+    qf, kf, vf, gf, if_ = (t.float() for t in (q, k, v, g, i))
+    ys = []
+    for t in range(S):
+        qt, kt, vt, gt, it = qf[:, t], kf[:, t], vf[:, t], gf[:, t], if_[:, t]
+        m_new = torch.maximum(gt + m, it)
+        fp = torch.exp(gt + m - m_new)[..., None, None]
+        ip = torch.exp(it - m_new)[..., None, None]
+        C = fp * C + ip * (kt[..., :, None] * vt[..., None, :])
+        n = fp[..., 0] * n + ip[..., 0] * kt
+        num = torch.einsum("bhq,bhqv->bhv", qt, C) * scale
+        den = torch.einsum("bhq,bhq->bh", qt, n) * scale
+        den = torch.maximum(torch.abs(den), torch.exp(-m_new))
+        m = m_new
+        ys.append(num / den[..., None])
+    return torch.stack(ys, dim=1)
+
+
 def reference_adam(p, g, m, v, scalars, *, b1=0.9, b2=0.999, eps=1e-8,
                    wd=0.0):
     """One AdamW step, the contract of ``fused_adam``; returns new tensors.

@@ -1,1 +1,1 @@
-"""Dense LM stack (the serving slice of ``repro.models``)."""
+"""LM stack: the dense and xLSTM families of ``repro.models``."""

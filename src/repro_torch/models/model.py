@@ -1,7 +1,7 @@
 """Model assembly: layer specs, init, train/prefill/decode entry points.
 
-Twin of ``repro.models.model`` for the dense LM family on one device.
-Where JAX stacks the layers of a segment and runs them under
+Twin of ``repro.models.model`` for the dense LM and xLSTM families on
+one device.  Where JAX stacks the layers of a segment and runs them under
 ``jax.lax.scan``, the port keeps one parameter dict per layer
 (``params["layers"]``) and loops over them in Python.
 
@@ -19,7 +19,8 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.blocks import Ctx, LayerSpec, apply_block
+from repro_torch.models.blocks import (Ctx, LayerSpec, apply_block,
+                                       slstm_ff_dim)
 
 
 @dataclass(frozen=True)
@@ -110,12 +111,19 @@ def init_model(cfg, generator: torch.Generator, device=None, dtype=None):
             p["bias"] = const((d,), 0.0)
         return p
 
-    d, qd, kvd = cfg.d_model, cfg.qkv_dim, cfg.kv_dim
-    layers = []
-    for spec in layer_specs(cfg):
-        if spec.kind != "attn_mlp":
-            raise NotImplementedError(
-                f"block kind {spec.kind!r} is not ported yet")
+    def mlp(d_ff):
+        p = {}
+        if cfg.mlp in ("swiglu", "geglu"):
+            p["w_gate"] = dense(d, d_ff)
+        p["w_up"] = dense(d, d_ff)
+        if cfg.mlp not in ("swiglu", "geglu") and cfg.mlp_bias:
+            p["b_up"] = const((d_ff,), 0.0)
+        p["w_down"] = dense(d_ff, d)
+        if cfg.mlp_bias:
+            p["b_down"] = const((d,), 0.0)
+        return p
+
+    def attn_mlp():
         attn = {"wq": dense(d, qd), "wk": dense(d, kvd), "wv": dense(d, kvd),
                 "wo": dense(qd, d)}
         if cfg.attn_bias:
@@ -126,17 +134,39 @@ def init_model(cfg, generator: torch.Generator, device=None, dtype=None):
         if cfg.qk_norm:
             attn["q_norm"] = const((cfg.head_dim,), 1.0)
             attn["k_norm"] = const((cfg.head_dim,), 1.0)
-        mlp = {}
-        if cfg.mlp in ("swiglu", "geglu"):
-            mlp["w_gate"] = dense(d, cfg.d_ff)
-        mlp["w_up"] = dense(d, cfg.d_ff)
-        if cfg.mlp not in ("swiglu", "geglu") and cfg.mlp_bias:
-            mlp["b_up"] = const((cfg.d_ff,), 0.0)
-        mlp["w_down"] = dense(cfg.d_ff, d)
-        if cfg.mlp_bias:
-            mlp["b_down"] = const((d,), 0.0)
-        layers.append({"norm1": norm(d), "attn": attn, "norm2": norm(d),
-                       "mlp": mlp})
+        return {"norm1": norm(d), "attn": attn, "norm2": norm(d),
+                "mlp": mlp(cfg.d_ff)}
+
+    def mlstm():
+        di, nh = cfg.ssm_expand * d, cfg.n_heads
+        b_gates = torch.cat([torch.zeros(nh), torch.full((nh,), 3.0)])
+        return {"norm1": norm(d), "w_in": dense(d, 2 * di),
+                "conv_w": normal((cfg.ssm_conv_width, di), 0.2),
+                "conv_b": const((di,), 0.0),
+                "wq": dense(di, di), "wk": dense(di, di), "wv": dense(di, di),
+                "w_gates": dense(di, 2 * nh),
+                # forget-gate bias high
+                "b_gates": b_gates.to(device=device, dtype=dtype),
+                "head_norm": {"scale": const((di,), 1.0)},
+                "w_out": dense(di, d)}
+
+    def slstm():
+        nh = cfg.n_heads
+        hd = d // nh
+        cell = {"w": normal((d, 4 * d), 1.0 / math.sqrt(d)),
+                "r": normal((4, nh, hd, hd), 1.0 / math.sqrt(hd)),
+                "bias": const((4 * d,), 0.0)}
+        return {"norm1": norm(d), "slstm": cell, "w_out": dense(d, d),
+                "norm2": norm(d), "mlp": mlp(slstm_ff_dim(cfg))}
+
+    d, qd, kvd = cfg.d_model, cfg.qkv_dim, cfg.kv_dim
+    make = {"attn_mlp": attn_mlp, "mlstm": mlstm, "slstm": slstm}
+    layers = []
+    for spec in layer_specs(cfg):
+        if spec.kind not in make:
+            raise NotImplementedError(
+                f"block kind {spec.kind!r} is not ported yet")
+        layers.append(make[spec.kind]())
     params = {"embed": {"table": normal((cfg.vocab_size, d), 0.02)},
               "layers": layers, "final_norm": norm(d)}
     if not cfg.tie_embeddings:
@@ -180,10 +210,11 @@ def forward(cfg, params, batch, mode: str = "prefill", caches=None,
 
     Returns (logits, caches, aux): train gives the full (B, S, V) logits
     and no caches; prefill gives the last position's logits (B, 1, V) and
-    fresh caches; decode the next logits and the caches written in place.
-    ``aux`` is the auxiliary loss, 0 for the dense family.  The JAX forward
-    rematerializes each layer in training; at the port's sizes (one
-    H100, 80 GB) the activations fit, so nothing is recomputed.
+    fresh caches; decode the next logits and the updated caches (KV caches
+    written in place).  ``aux`` is the auxiliary loss, 0 for the dense and
+    xLSTM families.  The JAX forward rematerializes each layer in training;
+    at the port's sizes (one H100, 80 GB) the activations fit, so nothing
+    is recomputed.
     """
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode {mode!r}: want train, prefill or decode")
@@ -262,13 +293,29 @@ def decode_step(cfg, params, tokens, pos: int, caches, positions=None):
 
 
 def pad_caches(caches, target_len: int):
-    """Grow every layer's KV cache to ``target_len`` slots (zeros after)."""
-    out = []
-    for c in caches:
-        grown = {}
-        for name, t in c["attn"].items():
-            g = t.new_zeros((t.shape[0], target_len) + tuple(t.shape[2:]))
-            g[:, :t.shape[1]] = t
-            grown[name] = g
-        out.append({"attn": grown})
-    return out
+    """Grow the attention KV caches (leaves named k/v) to ``target_len``
+    slots, zeros after; every other leaf (the SSM states, the conv tails)
+    is kept as it is."""
+
+    def walk(node):
+        if isinstance(node, dict):
+            out = {}
+            for name, t in node.items():
+                if name in ("k", "v") and isinstance(t, torch.Tensor):
+                    ax = t.dim() - 3
+                    shape = list(t.shape)
+                    shape[ax] = target_len
+                    grown = t.new_zeros(shape)
+                    grown.narrow(ax, 0, t.shape[ax]).copy_(t)
+                    out[name] = grown
+                else:
+                    out[name] = walk(t)
+            return out
+        if isinstance(node, (list, tuple)):
+            items = [walk(t) for t in node]
+            if hasattr(node, "_fields"):   # NamedTuple (ScanState)
+                return type(node)(*items)
+            return type(node)(items)
+        return node
+
+    return walk(caches)

@@ -1,8 +1,10 @@
 """Minimal batched serving engine: prefill + greedy/temperature decode.
 
-Twin of ``repro.serving.engine`` for the dense LM family.  Attention runs
-through the Hopper flash-attention kernel on the card, in prefill and in
-every decode step.
+Twin of ``repro.serving.engine`` for every family the port's model
+covers (dense LMs and xLSTM).  On the card, attention runs through the
+Hopper flash-attention kernel in prefill and in every decode step; the
+xLSTM mLSTM blocks run their prefill through the Hopper ``mlstm_chunk``
+kernel and decode by a plain recurrence step, as JAX computes it.
 """
 from __future__ import annotations
 

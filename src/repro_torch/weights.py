@@ -12,6 +12,10 @@ after ``jax.tree.map(np.asarray, params)`` and returns the dicts that
 * A tied head reuses ``embed.table``; an untied one is ``lm_head.w``
   ``(d_model, vocab)``.  The qwen2 QKV biases ``bq/bk/bv`` come along with
   the rest of the attention dict.
+* Nested dicts are carried whole: xlstm-350m's one segment of 8 pattern
+  dicts (7 mLSTM + 1 sLSTM, each leaf stacked over 3 repeats) becomes 24
+  layer dicts, the sLSTM cell as its own ``slstm`` dict (``w``, ``r``,
+  ``bias``).
 
 ``state_from_jax`` carries a whole train state ``{"params", "opt"}``.
 """

@@ -1,8 +1,9 @@
 """Port ``ServeEngine`` vs the JAX ``ServeEngine`` on the CPU, and the
 port's import boundary.
 
-Greedy ids are identical to JAX's for the reduced qwen2-0.5b and the bench
-tiny config (same weights, carried across with ``weights.from_jax``).
+Greedy ids are identical to JAX's for the reduced qwen2-0.5b, the bench
+tiny config and the reduced xlstm-350m (same weights, carried across with
+``weights.from_jax``).
 Temperature decoding is seeded: the same seed gives the same ids (they are
 not JAX's ids: the port draws from a ``torch.Generator``).
 """
@@ -43,7 +44,7 @@ def _engines(name):
     return JaxEngine(jc, params), ServeEngine(tc, tp, device="cpu"), prompts
 
 
-@pytest.mark.parametrize("name", ["qwen2-0.5b", "bench_tiny"])
+@pytest.mark.parametrize("name", ["qwen2-0.5b", "bench_tiny", "xlstm-350m"])
 def test_greedy_ids_equal_jax(name):
     jax_engine, engine, prompts = _engines(name)
     want = jax_engine.generate(prompts, n_new=6, temperature=0.0)
