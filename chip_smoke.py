@@ -10,7 +10,18 @@ Phases, one JSON line each; any failure exits non-zero:
   flash_attention
                  the kernel against its plain version on the card, per case:
                  max error, kernel / plain / SDPA ms, and the least time the
-                 card could take (bytes or operations, whichever bounds)
+                 card could take (bytes or operations, whichever bounds),
+                 the kernel's path (wgmma, split_kv or simt; each case
+                 asserts the path it must take), its splits and the CUDA
+                 kernels one call makes (torch.profiler over 5 calls,
+                 asserted against the path's).  Cases: the serve prefill
+                 (B 4, S 128), S 512, ragged S 100, Sq 16 over Sk 144, a
+                 window of 128, f32, hd 128, the train forward per worker
+                 (B 2, S 128), decode at the serve's positions 131 and 159
+                 and over a 4096-slot cache, the f32 parity decode, bf16
+                 inputs off 16-byte alignment, decode over 48 keys (one
+                 split), Sq 4 over Sk 200 (two 16-row tiles) and decode at
+                 hd 128
   serve          full-width qwen2-0.5b (bf16, seeded init) through
                  ServeEngine.generate: 4 prompts x 128 tokens, 32 greedy new
                  tokens; asserts the flash kernel launched 24 x (1 + 32) times
@@ -66,6 +77,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
+import re
 import subprocess
 import sys
 import time
@@ -85,16 +98,54 @@ ADAM_TOL = {"m": (1e-5, 1e-5), "v": (1e-6, 1e-5),
 PARITY_LOGIT_ATOL = 1e-3   # f32, 24 layers, sums in another order per device
 SEED = 0
 
-# (name, B, Sq, Sk, H, KV, hd, dtype, causal, window, cache_len)
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashCase:
+    name: str
+    B: int
+    Sq: int
+    Sk: int
+    H: int
+    KV: int
+    hd: int
+    dtype: str
+    path: str          # the kernel path the case must take
+    causal: bool = True
+    window: int = 0
+    cache: int = 0     # decode: k/v are the first Sk slots of a longer cache
+    offset: int = 0    # q, k, v start this many elements past an allocation
+
+
 FLASH_CASES = [
-    ("prefill_s128", 4, 128, 128, 14, 2, 64, "bfloat16", True, 0, 0),
-    ("prefill_s512", 4, 512, 512, 14, 2, 64, "bfloat16", True, 0, 0),
-    ("ragged_s100", 4, 100, 100, 14, 2, 64, "bfloat16", True, 0, 0),
-    ("sq16_sk144", 4, 16, 144, 14, 2, 64, "bfloat16", True, 0, 0),
-    ("decode_pos131", 4, 1, 132, 14, 2, 64, "bfloat16", True, 0, 160),
-    ("window128_s512", 4, 512, 512, 14, 2, 64, "bfloat16", True, 128, 0),
-    ("f32_s256", 2, 256, 256, 14, 2, 64, "float32", True, 0, 0),
-    ("hd128_s256", 2, 256, 256, 8, 2, 128, "bfloat16", True, 0, 0),
+    FlashCase("prefill_s128", 4, 128, 128, 14, 2, 64, "bfloat16", "wgmma"),
+    FlashCase("prefill_s512", 4, 512, 512, 14, 2, 64, "bfloat16", "wgmma"),
+    FlashCase("ragged_s100", 4, 100, 100, 14, 2, 64, "bfloat16", "wgmma"),
+    FlashCase("sq16_sk144", 4, 16, 144, 14, 2, 64, "bfloat16", "wgmma"),
+    FlashCase("decode_pos131", 4, 1, 132, 14, 2, 64, "bfloat16", "split_kv",
+              cache=160),
+    FlashCase("window128_s512", 4, 512, 512, 14, 2, 64, "bfloat16", "wgmma",
+              window=128),
+    FlashCase("f32_s256", 2, 256, 256, 14, 2, 64, "float32", "simt"),
+    FlashCase("hd128_s256", 2, 256, 256, 8, 2, 128, "bfloat16", "wgmma"),
+    FlashCase("train_b2_s128", 2, 128, 128, 14, 2, 64, "bfloat16", "wgmma"),
+    FlashCase("decode_sk4096", 4, 1, 4096, 14, 2, 64, "bfloat16", "split_kv",
+              cache=4096),
+    FlashCase("decode_pos159", 4, 1, 160, 14, 2, 64, "bfloat16", "split_kv",
+              cache=160),
+    # serve_parity's decode (one prompt, a 72-slot f32 cache)
+    FlashCase("f32_decode_sk71", 1, 1, 71, 14, 2, 64, "float32", "simt",
+              cache=72),
+    # one element past the allocation: pointers off 16 bytes
+    FlashCase("unaligned_s96", 2, 96, 96, 14, 2, 64, "bfloat16", "simt",
+              offset=1),
+    # fewer keys than two splits' floor: one split writes the output
+    FlashCase("decode_sk48", 4, 1, 48, 14, 2, 64, "bfloat16", "split_kv",
+              cache=160),
+    # 28 packed rows: two 16-row tiles of the split kernel
+    FlashCase("sq4_sk200", 4, 4, 200, 14, 2, 64, "bfloat16", "split_kv"),
+    FlashCase("decode_hd128", 2, 1, 300, 8, 2, 128, "bfloat16", "split_kv",
+              cache=512),
 ]
 # (name, B, S, H, hd, dtype, gates): xlstm-350m's mLSTM has 4 heads of 512
 MLSTM_CASES = [
@@ -114,6 +165,10 @@ MLSTM_HEADLINE = "serve_s128"
 # from the same inputs; they differ in chunking and summation order)
 MLSTM_TOL = 5e-4
 HEADLINE_CASE = "prefill_s128"   # the serve prompt's shape
+DECODE_CASE = "decode_pos131"    # a serve decode step: 768 of 792 launches
+# the CUDA kernels of src/repro_torch/kernels/csrc, by function name
+PORT_KERNELS = ("flash_fwd", "flash_fwd_tc", "flash_split_tc",
+                "flash_combine", "masked_agg", "fused_adam", "mlstm_fwd")
 AGG_HEADLINE = "full_w8_f32"      # the train step's (8, N) buffer
 ADAM_HEADLINE = "full_bfloat16"   # the train step's leaves
 
@@ -173,8 +228,8 @@ def device_ms(torch, fn, side, reps=20):
 def device_profile(torch, fn, n_top=10):
     """Run ``fn`` under torch.profiler, recording the device's activity
     only (kernels and copies; recording the host's ops as well costs seconds
-    of post-processing per 10^4 kernels): device ms, device events and the
-    kernels that took longest."""
+    of post-processing per 10^4 kernels): device ms, device events, the
+    port's own kernels by name and the kernels that took longest."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -182,11 +237,50 @@ def device_profile(torch, fn, n_top=10):
     dev = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     top = sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)
+    ours = {}   # the port's kernels by name
+    for e in dev:
+        name = kernel_name(e.key)
+        if name in PORT_KERNELS:
+            n, ms = ours.get(name, (0, 0.0))
+            ours[name] = (n + e.count, ms + e.self_device_time_total / 1e3)
     return {"device_ms": sum(e.self_device_time_total for e in dev) / 1e3,
             "device_events": sum(e.count for e in dev),
+            "ours": {k: {"count": n, "device_ms": ms}
+                     for k, (n, ms) in ours.items()},
             "top": [{"kernel": e.key[:100], "count": e.count,
                      "device_ms": e.self_device_time_total / 1e3}
                     for e in top[:n_top]]}
+
+
+def kernels_per_call(torch, fn, calls=5):
+    """The CUDA kernels one call of ``fn`` launches, by name: launches a
+    call and device µs a launch, from ``calls`` profiled calls.  One call
+    before them is traced and dropped, since the first moments of a trace
+    can lose kernels."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    got = []
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=calls, repeat=1),
+                 on_trace_ready=lambda p: got.append(p.key_averages())) as prof:
+        for _ in range(1 + calls):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    per = {}
+    for e in got[0]:
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n, us = per.get(kernel_name(e.key), (0, 0.0))
+            per[kernel_name(e.key)] = (n + e.count,
+                                       us + e.self_device_time_total)
+    return {k: {"per_call": n / calls, "us": us / n}
+            for k, (n, us) in per.items()}
+
+
+def kernel_name(key):
+    """``flash_fwd`` of ``void (anonymous namespace)::flash_fwd<...>``."""
+    m = re.search(r"::(\w+)[<(]", key)
+    return m.group(1) if m else key[:60]
 
 
 def valid_pairs(Sq, Sk, causal, window):
@@ -208,8 +302,13 @@ def phase_build():
     wall = time.perf_counter() - t0
     per = {}
     for name, rec in info.items():
-        ptxas = [ln.strip() for ln in rec["log"].splitlines()
-                 if "registers" in ln or "spill" in ln]
+        ptxas, fn = [], None   # each line under its (mangled) kernel name
+        for ln in rec["log"].splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", ln)
+            if m:
+                fn = m.group(1)
+            elif "registers" in ln or "spill" in ln:
+                ptxas.append(f"{fn}: {ln.strip()}")
         per[name] = {"seconds": rec["seconds"], "ptxas": ptxas}
     emit("build", seconds=wall, kernels=per)
     emit("kernels", names=sorted(build.SOURCES))
@@ -218,32 +317,39 @@ def phase_build():
 def phase_flash(torch):
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (
+        aligned16, choose_path, flash_attention, split_plan)
     from repro_torch.kernels.ref import reference_attention
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     side = torch.cuda.Stream()
     results = {}
-    for (name, B, Sq, Sk, H, KV, hd, dtname, causal, window,
-         cache_len) in FLASH_CASES:
-        dt = getattr(torch, dtname)
+    for c in FLASH_CASES:
+        name, B, Sq, Sk, H, KV, hd = (c.name, c.B, c.Sq, c.Sk, c.H, c.KV,
+                                      c.hd)
+        causal, window, dt = c.causal, c.window, getattr(torch, c.dtype)
 
         def rand(*shape):
-            return torch.randn(shape, generator=gen, device="cuda").to(dt)
+            n = math.prod(shape)
+            flat = torch.randn(n + c.offset, generator=gen, device="cuda")
+            return flat.to(dt)[c.offset:].view(shape)
 
         q = rand(B, Sq, H, hd)
-        if cache_len:   # decode: a view of the first Sk slots of a cache
-            k = rand(B, cache_len, KV, hd)[:, :Sk]
-            v = rand(B, cache_len, KV, hd)[:, :Sk]
+        if c.cache:   # decode: a view of the first Sk slots of a cache
+            k = rand(B, c.cache, KV, hd)[:, :Sk]
+            v = rand(B, c.cache, KV, hd)[:, :Sk]
         else:
             k, v = rand(B, Sk, KV, hd), rand(B, Sk, KV, hd)
+        path = choose_path(q.dtype, Sq, H // KV, aligned16(q, k, v))
+        check(path == c.path, f"{name}: takes {path}, not {c.path}")
         out = flash_attention(q, k, v, causal=causal, window=window)
         want = reference_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         check(out.shape == want.shape and out.dtype == q.dtype,
               f"{name}: output {tuple(out.shape)} {out.dtype}")
         err = (out.float() - want.float()).abs().max().item()
-        check(err <= TOL[dtname], f"{name}: max error {err} > {TOL[dtname]}")
+        tol = TOL[c.dtype]
+        check(err <= tol, f"{name}: max error {err} > {tol}")
 
         qpos = torch.arange(Sq, device="cuda") + (Sk - Sq)
         kpos = torch.arange(Sk, device="cuda")
@@ -272,18 +378,36 @@ def phase_flash(torch):
                           ("library_ms", sdpa)):
             times[label] = device_ms(torch, fn, side)
             times["eager_" + label] = eager_ms(torch, fn)
+        plan = (split_plan(Sq, Sk, causal, window, B * KV)
+                if path == "split_kv" else None)
+        # the CUDA kernels a call makes, against what its path launches
+        per_call = kernels_per_call(torch, kern)
+        expect = {"simt": {"flash_fwd"}, "wgmma": {"flash_fwd_tc"},
+                  "split_kv": {"flash_split_tc"}}[path]
+        if plan and plan.splits > 1:
+            expect = expect | {"flash_combine"}
+        check(set(per_call) == expect
+              and all(r["per_call"] == 1 for r in per_call.values()),
+              f"{name}: a call launched {per_call}, not one each of "
+              f"{sorted(expect)}")
 
         elt = q.element_size()
         nbytes = elt * (2 * q.numel() + 2 * B * Sk * KV * hd)
         ops = 4 * B * H * hd * valid_pairs(Sq, Sk, causal, window)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / PEAK_OPS[dtname] * 1e3
-        rec = {"case": name, "shape": [B, Sq, Sk, H, KV, hd], "dtype": dtname,
-               "causal": causal, "window": window, "max_abs_err": err,
-               "tol": TOL[dtname], **times, "library_err": lib_err,
+        t_ops = ops / PEAK_OPS[c.dtype] * 1e3
+        rec = {"case": name, "shape": [B, Sq, Sk, H, KV, hd],
+               "dtype": c.dtype, "causal": causal, "window": window,
+               "cache": c.cache, "offset": c.offset, "max_abs_err": err,
+               "tol": tol, **times, "library_err": lib_err,
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "bytes": nbytes, "ops": ops}
+               "bytes": nbytes, "ops": ops, "path": path,
+               "splits": plan.splits if plan else None,
+               "cuda_kernels_per_call": sum(r["per_call"]
+                                            for r in per_call.values()),
+               "kernel_us": {k: r["us"] for k, r in per_call.items()},
+               "ms_over_library": times["ms"] / times["library_ms"]}
         results[name] = rec
         emit("flash_attention", **rec)
     return results
@@ -1127,6 +1251,10 @@ def main() -> int:
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"], "case": case, **extra})
+    dec = flash[DECODE_CASE]
+    rows[0].update({"decode_case": DECODE_CASE, "decode_ms": dec["ms"],
+                    "decode_library_ms": dec["library_ms"],
+                    "decode_bound_ms": dec["bound_ms"]})
     print(json.dumps({"kernels": rows}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -2,12 +2,15 @@
 
 Each source is compiled on its own into a shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds), named by a hash
-of its text so a stale library is never loaded:
+of its text and of every header under ``csrc/`` (``*.cuh``, which a source
+may include), so a stale library is never loaded:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          --split-compile=0 -Xcompiler -fPIC -Xptxas -v \
          -o build/kernels/lib<name>-<hash>.so
 
+No source builds TMA descriptors (the flash kernel fills its shared-memory
+ring with cp.async), so nothing links libcuda (``-lcuda``).
 ``--split-compile=0`` lets nvcc optimize a source's kernels on every core
 at once; the flash-attention source, with its unrolled head-dim
 instances, builds in about half the time.
@@ -60,8 +63,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -7,10 +7,16 @@ softmax statistics, output in ``q.dtype``.
 
 A CPU tensor goes to the plain version.  A CUDA tensor launches the kernel
 or raises; nothing falls back.  Any other device raises.
+
+The kernel has three paths (``csrc/flash_attention.cu``); ``choose_path``
+picks one by dtype, packed rows (Sq * H/KV) and alignment, and
+``split_plan`` cuts the keys of the split-KV path into ranges.  Both are
+pure functions of the shapes, tested without a card.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 
@@ -26,7 +32,79 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
              + [ctypes.c_longlong] * 12
-             + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+             + [ctypes.c_int, ctypes.c_int, ctypes.c_float]
+             + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
+
+#: the kernel's paths, with their codes in the C interface
+PATHS = {"simt": 0, "wgmma": 1, "split_kv": 2}
+#: most packed rows (Sq * H/KV) the split-KV path takes: one warpgroup's
+#: tile, and more rows than that fill the card without a split
+SPLIT_MAX_ROWS = 64
+#: keys a split gets: at least MIN, and at most MAX unless the card is
+#: covered with fewer splits
+SPLIT_MIN_KEYS = 32
+SPLIT_MAX_KEYS = 256
+#: most splits: the merge kernel's threads read one split's (m, l) each
+SPLIT_MAX = 64
+H100_SMS = 132
+
+
+def choose_path(dtype, Sq: int, G: int, aligned: bool) -> str:
+    """The kernel path for a call: in bf16, ``"split_kv"`` for at most 64
+    packed rows (decode) and ``"wgmma"`` for more (prefill, the train
+    forward); ``"simt"`` for f32 at any shape (only the f32 parity runs
+    call it, at a tolerance tensor cores cannot hold) and for inputs whose
+    pointers or strides are not 16-byte aligned (the other paths copy 16
+    bytes at a time)."""
+    if not aligned or dtype != torch.bfloat16:
+        return "simt"
+    return "split_kv" if Sq * G <= SPLIT_MAX_ROWS else "wgmma"
+
+
+def key_range(Sq: int, Sk: int, causal: bool, window: int):
+    """[k_begin, k_end): the keys that any of the Sq query rows sees (row i
+    at position i + Sk - Sq)."""
+    q_first, q_last = Sk - Sq, Sk - 1
+    k_end = min(Sk, q_last + 1) if causal else Sk
+    k_begin = max(0, q_first - window + 1) if window > 0 else 0
+    return k_begin, k_end
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitPlan:
+    """Keys [k_begin, k_end) cut into ``splits`` ranges of ``chunk`` keys
+    (the last may be shorter); range s is [k_begin + s*chunk,
+    min(k_end, k_begin + (s+1)*chunk))."""
+    k_begin: int
+    k_end: int
+    chunk: int
+    splits: int
+
+
+def split_plan(Sq: int, Sk: int, causal: bool, window: int, n_bkv: int,
+               n_sm: int = H100_SMS) -> SplitPlan:
+    """Split the visible keys so that the (splits, KV, B) grid covers the
+    SMs: about n_sm / (B*KV) splits, at least keys / SPLIT_MAX_KEYS, none
+    shorter than SPLIT_MIN_KEYS keys (unless there is only one), at most
+    SPLIT_MAX."""
+    k_begin, k_end = key_range(Sq, Sk, causal, window)
+    n = k_end - k_begin
+    want = max(n_sm // max(n_bkv, 1), -(-n // SPLIT_MAX_KEYS))
+    want = max(1, min(want, n // SPLIT_MIN_KEYS, SPLIT_MAX))
+    chunk = -(-n // want)
+    return SplitPlan(k_begin, k_end, chunk, -(-n // chunk))
+
+
+def aligned16(*ts) -> bool:
+    """Every pointer and every stride but the last on 16 bytes."""
+    return all(t.data_ptr() % 16 == 0
+               and all(s * t.element_size() % 16 == 0 for s in t.stride()[:3])
+               for t in ts)
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sm(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.lru_cache(maxsize=None)
@@ -76,6 +154,15 @@ def _launch(q, k, v, causal, window):
             raise ValueError(f"flash_attention: {name} must be contiguous "
                              f"in head_dim; strides {t.stride()}")
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    G = H // KV
+    path = choose_path(q.dtype, Sq, G, aligned16(q, k, v))
+    plan, part = SplitPlan(0, Sk, Sk, 1), None
+    if path == "split_kv":
+        plan = split_plan(Sq, Sk, causal, window, B * KV,
+                          _n_sm(q.device.index or 0))
+        if plan.splits > 1:   # (acc[hd], m, l) per split and row
+            part = torch.empty(B * KV * plan.splits * Sq * G * (hd + 2),
+                               dtype=torch.float32, device=q.device)
     fn = _kernel_fn()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
@@ -83,7 +170,9 @@ def _launch(q, k, v, causal, window):
                  _DTYPE_CODE[q.dtype], B, Sq, Sk, H, KV, hd,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  *out.stride()[:3], int(causal), int(window),
-                 1.0 / math.sqrt(hd), stream)
+                 1.0 / math.sqrt(hd), PATHS[path], plan.k_begin,
+                 plan.k_end, plan.chunk, plan.splits,
+                 None if part is None else part.data_ptr(), stream)
     if err < 0:
         raise ValueError(f"flash_attention: the kernel refused its "
                          f"arguments (code {err})")
