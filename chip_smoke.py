@@ -22,6 +22,16 @@ Phases, one JSON line each; any failure exits non-zero:
                  inputs off 16-byte alignment, decode over 48 keys (one
                  split), Sq 4 over Sk 200 (two 16-row tiles) and decode at
                  hd 128
+  mlstm_chunk    the kernel against its plain version (the chunked
+                 linear_recurrence) and the sequential oracle on the card,
+                 for y and for a decode step taken from the returned state:
+                 xlstm-350m's serve shape (B 4, S 128, H 4, hd 512, bf16),
+                 ragged S 100, S 300, S 1, f32, hd 16/32/64 and extreme
+                 gates; each case asserts its path (wgmma or simt) and the
+                 CUDA kernels a call makes (5 profiled calls); kernel /
+                 plain ms, the bound (bytes, or operations in the Pallas
+                 kernel's chunks over the tensor cores' rates) and the
+                 f32-FMA floor of the same count
   serve          full-width qwen2-0.5b (bf16, seeded init) through
                  ServeEngine.generate: 4 prompts x 128 tokens, 32 greedy new
                  tokens; asserts the flash kernel launched 24 x (1 + 32) times
@@ -51,12 +61,6 @@ Phases, one JSON line each; any failure exits non-zero:
   train_parity   the same psum step at full width and 2 layers, f32, W = 4,
                  2 steps, on the CPU (plain versions) and on the card
                  (kernels): loss, aggregated gradient, m, v and p
-  mlstm_chunk    the kernel against its plain version (the chunked
-                 linear_recurrence) and the sequential oracle on the card,
-                 for y and for a decode step taken from the returned state:
-                 xlstm-350m's serve shape (B 4, S 128, H 4, hd 512, bf16),
-                 ragged S 100, S 300, S 1, f32, hd 16/32/64 and extreme
-                 gates; kernel / plain ms and the bound at the serve shape
   serve_xlstm    full-width xlstm-350m (bf16, seeded init) through
                  ServeEngine.generate: 4 prompts x 128 tokens, 32 greedy new
                  tokens; asserts 21 mlstm_chunk launches (the mLSTM
@@ -147,19 +151,25 @@ FLASH_CASES = [
     FlashCase("decode_hd128", 2, 1, 300, 8, 2, 128, "bfloat16", "split_kv",
               cache=512),
 ]
-# (name, B, S, H, hd, dtype, gates): xlstm-350m's mLSTM has 4 heads of 512
+# (name, B, S, H, hd, dtype, gates, path the case must take): xlstm-350m's
+# mLSTM has 4 heads of 512
 MLSTM_CASES = [
-    ("serve_s128", 4, 128, 4, 512, "bfloat16", "normal"),
-    ("ragged_s100", 4, 100, 4, 512, "bfloat16", "normal"),
-    ("s300", 2, 300, 4, 512, "bfloat16", "normal"),
-    ("s1", 4, 1, 4, 512, "bfloat16", "normal"),
-    ("f32_s128", 4, 128, 4, 512, "float32", "normal"),
-    ("hd16_s77", 2, 77, 4, 16, "float32", "normal"),
-    ("hd32_s128", 4, 128, 4, 32, "bfloat16", "normal"),
-    ("hd64_s130", 2, 130, 4, 64, "bfloat16", "normal"),
-    ("extreme_gates", 4, 128, 4, 512, "bfloat16", "extreme"),
+    ("serve_s128", 4, 128, 4, 512, "bfloat16", "normal", "wgmma"),
+    ("ragged_s100", 4, 100, 4, 512, "bfloat16", "normal", "wgmma"),
+    ("s300", 2, 300, 4, 512, "bfloat16", "normal", "wgmma"),
+    ("s1", 4, 1, 4, 512, "bfloat16", "normal", "wgmma"),
+    ("f32_s128", 4, 128, 4, 512, "float32", "normal", "simt"),
+    ("hd16_s77", 2, 77, 4, 16, "float32", "normal", "simt"),
+    ("hd32_s128", 4, 128, 4, 32, "bfloat16", "normal", "simt"),
+    ("hd64_s130", 2, 130, 4, 64, "bfloat16", "normal", "wgmma"),
+    ("extreme_gates", 4, 128, 4, 512, "bfloat16", "extreme", "wgmma"),
 ]
 MLSTM_HEADLINE = "serve_s128"
+# the mLSTM yardstick counts the work in the Pallas kernel's chunks,
+# min(128, S) (src/repro/kernels/mlstm_chunk.py:88), whatever chunk the
+# port's kernel takes
+PALLAS_MLSTM_CHUNK = 128
+TF32_OPS = 495e12   # dense tensor-core TF32: products with an f32 operand
 # kernel vs plain and vs the oracle, y and a decode step: atol = rtol, as
 # tests/test_kernels.py holds the Pallas kernel (both sides compute in f32
 # from the same inputs; they differ in chunking and summation order)
@@ -168,7 +178,8 @@ HEADLINE_CASE = "prefill_s128"   # the serve prompt's shape
 DECODE_CASE = "decode_pos131"    # a serve decode step: 768 of 792 launches
 # the CUDA kernels of src/repro_torch/kernels/csrc, by function name
 PORT_KERNELS = ("flash_fwd", "flash_fwd_tc", "flash_split_tc",
-                "flash_combine", "masked_agg", "fused_adam", "mlstm_fwd")
+                "flash_combine", "masked_agg", "fused_adam", "mlstm_fwd",
+                "mlstm_state_tc", "mlstm_out_tc")
 AGG_HEADLINE = "full_w8_f32"      # the train step's (8, N) buffer
 ADAM_HEADLINE = "full_bfloat16"   # the train step's leaves
 
@@ -256,23 +267,33 @@ def kernels_per_call(torch, fn, calls=5):
     """The CUDA kernels one call of ``fn`` launches, by name: launches a
     call and device µs a launch, from ``calls`` profiled calls.  One call
     before them is traced and dropped, since the first moments of a trace
-    can lose kernels."""
+    can lose kernels.  A trace that lost events all the same (none at all,
+    or a kernel counted a fractional number of times a call: every wrapper
+    here launches the same kernels on every call) is taken again, up to 5
+    traces; the caller asserts the counts.  The phases that call
+    this run first: late in a long run (after the serve and train
+    profiles) the profiler has lost the first kernel of every trace."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    got = []
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=calls, repeat=1),
-                 on_trace_ready=lambda p: got.append(p.key_averages())) as prof:
-        for _ in range(1 + calls):
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
-    per = {}
-    for e in got[0]:
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            n, us = per.get(kernel_name(e.key), (0, 0.0))
-            per[kernel_name(e.key)] = (n + e.count,
-                                       us + e.self_device_time_total)
+    for _ in range(5):
+        per = {}
+        got = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=calls,
+                                       repeat=1),
+                     on_trace_ready=lambda p: got.append(p.key_averages())
+                     ) as prof:
+            for _ in range(1 + calls):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        for e in got[0]:
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                n, us = per.get(kernel_name(e.key), (0, 0.0))
+                per[kernel_name(e.key)] = (n + e.count,
+                                           us + e.self_device_time_total)
+        if per and all(n % calls == 0 for n, _ in per.values()):
+            break
     return {k: {"per_call": n / calls, "us": us / n}
             for k, (n, us) in per.items()}
 
@@ -378,6 +399,14 @@ def phase_flash(torch):
                           ("library_ms", sdpa)):
             times[label] = device_ms(torch, fn, side)
             times["eager_" + label] = eager_ms(torch, fn)
+        # the library is a yardstick only: a wrong result voids its time
+        # (SDPA on views off 16-byte alignment), the run goes on
+        lib_invalid = None
+        if not lib_err <= tol:
+            lib_invalid = (f"library_err {lib_err} > tol {tol}: the "
+                           f"library time {times['library_ms']} ms is of a "
+                           f"wrong result")
+            times["library_ms"] = times["eager_library_ms"] = None
         plan = (split_plan(Sq, Sk, causal, window, B * KV)
                 if path == "split_kv" else None)
         # the CUDA kernels a call makes, against what its path launches
@@ -400,6 +429,7 @@ def phase_flash(torch):
                "dtype": c.dtype, "causal": causal, "window": window,
                "cache": c.cache, "offset": c.offset, "max_abs_err": err,
                "tol": tol, **times, "library_err": lib_err,
+               "library_invalid": lib_invalid,
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "bytes": nbytes, "ops": ops, "path": path,
@@ -407,7 +437,8 @@ def phase_flash(torch):
                "cuda_kernels_per_call": sum(r["per_call"]
                                             for r in per_call.values()),
                "kernel_us": {k: r["us"] for k, r in per_call.items()},
-               "ms_over_library": times["ms"] / times["library_ms"]}
+               "ms_over_library": (None if lib_invalid else
+                                   times["ms"] / times["library_ms"])}
         results[name] = rec
         emit("flash_attention", **rec)
     return results
@@ -980,19 +1011,46 @@ def _mlstm_inputs(torch, B, S, H, hd, dtname, gates, gen):
 
 
 def mlstm_ops(B, S, H, hd, chunk):
-    """Operations of the chunkwise algorithm at ``chunk``: per (b, h) and
-    chunk of L positions, q k^T and (W q k^T) v over the L(L+1)/2 causal
-    pairs, and the two (L, hd) x (hd, hd) products (q C with the entering
-    state, which is zero for the first chunk, and the state update)."""
-    total = 0
+    """Operations of the chunkwise algorithm at ``chunk``, as (q k^T, the
+    rest): per (b, h) and chunk of L positions, q k^T and (W q k^T) v over
+    the L(L+1)/2 causal pairs, and the two (L, hd) x (hd, hd) products (q C
+    with the entering state, which is zero for the first chunk, and the
+    state update)."""
+    qk = rest = 0
     for c0 in range(0, S, chunk):
         L = min(chunk, S - c0)
-        total += L * (L + 1) * 2 * hd + 2 * L * hd * hd * (2 if c0 else 1)
-    return B * H * total
+        qk += L * (L + 1) * hd
+        rest += L * (L + 1) * hd + 2 * L * hd * hd * (2 if c0 else 1)
+    return B * H * qk, B * H * rest
+
+
+def mlstm_bound(B, S, H, hd, dtname):
+    """The least time the card could take for one call, in ms, with its
+    basis: the bytes (q/k/v and the gates read once, y and the final state
+    written once) over 3.35 TB/s, against the operations (counted in the
+    Pallas kernel's chunks) over the tensor cores' rates, 989 TFLOP/s for
+    q k^T with bf16 operands and 495 (TF32) for the products with an f32
+    operand; the same count over 67 TFLOP/s of f32 FMAs beside it."""
+    elt = 2 if dtname == "bfloat16" else 4
+    nbytes = (3 * B * S * H * hd * elt + 2 * B * S * H * 4   # in
+              + B * S * H * hd * 4                           # y
+              + 4 * B * H * (hd * hd + hd + 2))              # state
+    qk, rest = mlstm_ops(B, S, H, hd, PALLAS_MLSTM_CHUNK)
+    qk_rate = PEAK_OPS["bfloat16"] if dtname == "bfloat16" else TF32_OPS
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (qk / qk_rate + rest / TF32_OPS) * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": t_bytes, "ops_ms": t_ops,
+            "fma_floor_ms": (qk + rest) / PEAK_OPS["float32"] * 1e3,
+            "bytes": nbytes, "ops": qk + rest, "ops_qk": qk,
+            "chunk": PALLAS_MLSTM_CHUNK}
 
 
 def phase_mlstm(torch):
-    from repro_torch.kernels.mlstm_chunk import CHUNK, mlstm_chunk
+    from repro_torch.kernels.flash_attention import aligned16
+    from repro_torch.kernels.mlstm_chunk import (PATH_KERNELS, choose_path,
+                                                 mlstm_chunk)
     from repro_torch.kernels.mlstm_plain import linear_recurrence
     from repro_torch.kernels.ref import reference_mlstm
     from repro_torch.models.ssm import recurrence_step
@@ -1000,11 +1058,14 @@ def phase_mlstm(torch):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     side = torch.cuda.Stream()
     results = {}
-    for name, B, S, H, hd, dtname, gates in MLSTM_CASES:
+    for name, B, S, H, hd, dtname, gates, want_path in MLSTM_CASES:
         q, k, v, g, i = _mlstm_inputs(torch, B, S + 1, H, hd, dtname, gates,
                                       gen)
         head = [t[:, :S] for t in (q, k, v, g, i)]
         step = [t[:, S] for t in (q, k, v, g, i)]
+        path = choose_path(q.dtype, hd, aligned16(*head[:3]))
+        check(path == want_path, f"mlstm {name}: takes {path}, not "
+              f"{want_path}")
         y, st = mlstm_chunk(*head)
         want, pst = linear_recurrence(*head)
         oracle = reference_mlstm(q, k, v, g, i)
@@ -1029,31 +1090,34 @@ def phase_mlstm(torch):
         loga_err = (st.loga - pst.loga).abs().max().item()
         check(loga_err <= MLSTM_TOL * (1 + pst.loga.abs().max().item()),
               f"mlstm {name}: loga off by {loga_err}")
+
+        def kern():
+            return mlstm_chunk(*head)
+
+        # the CUDA kernels a call makes, against what its path launches
+        per_call = kernels_per_call(torch, kern)
+        expect = set(PATH_KERNELS[path])
+        check(set(per_call) == expect
+              and all(r["per_call"] == 1 for r in per_call.values()),
+              f"mlstm {name}: a call launched {per_call}, not one each of "
+              f"{sorted(expect)}")
+        times = {}
+        for label, fn in (("ms", kern),
+                          ("plain_ms", lambda: linear_recurrence(*head))):
+            times[label] = device_ms(torch, fn, side)
+            times["eager_" + label] = eager_ms(torch, fn)
         rec = {"case": name, "shape": [B, S, H, hd], "dtype": dtname,
-               "gates": gates, "max_abs_err": errs["y"],
+               "gates": gates, "path": path, "max_abs_err": errs["y"],
                "step_max_abs_err": errs["step"],
                "oracle_max_abs_err": errs["y_oracle"],
                "step_oracle_max_abs_err": errs["step_oracle"],
                "y_max_abs": oracle[:, :S].abs().max().item(),
-               "tol": MLSTM_TOL}
-        if name == MLSTM_HEADLINE:
-            times = {}
-            for label, fn in (("ms", lambda: mlstm_chunk(*head)),
-                              ("plain_ms", lambda: linear_recurrence(*head))):
-                times[label] = device_ms(torch, fn, side)
-                times["eager_" + label] = eager_ms(torch, fn)
-            elt = q.element_size()
-            nbytes = (3 * B * S * H * hd * elt + 2 * B * S * H * 4   # in
-                      + B * S * H * hd * 4                           # y
-                      + 4 * B * H * (hd * hd + hd + 2))              # state
-            ops = mlstm_ops(B, S, H, hd, CHUNK)
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = ops / PEAK_OPS["float32"] * 1e3   # f32 FMAs, CUDA cores
-            rec.update(times, library_ms=None,
-                       library="none: no single PyTorch call computes it",
-                       bound_ms=max(t_bytes, t_ops),
-                       bound_by="bytes" if t_bytes >= t_ops else "operations",
-                       bytes=nbytes, ops=ops, chunk=CHUNK)
+               "tol": MLSTM_TOL, **times, "library_ms": None,
+               "library": "none: no single PyTorch call computes it",
+               **mlstm_bound(B, S, H, hd, dtname),
+               "cuda_kernels_per_call": sum(r["per_call"]
+                                            for r in per_call.values()),
+               "kernel_us": {k: r["us"] for k, r in per_call.items()}}
         results[name] = rec
         emit("mlstm_chunk", **rec)
         del q, k, v, g, i, head, step, y, st, want, pst, oracle
@@ -1190,6 +1254,7 @@ def main() -> int:
     sec = {"start": time.perf_counter() - t_start}
     timed(sec, "build", phase_build)
     flash = timed(sec, "flash_attention", phase_flash, torch)
+    mlstm = timed(sec, "mlstm_chunk", phase_mlstm, torch)
     cfg = get_config("qwen2-0.5b")
     params_f32 = timed(sec, "init_weights", init_weights, torch, cfg)
     serve_launches = timed(sec, "serve", phase_serve, torch, cfg, params_f32)
@@ -1200,7 +1265,6 @@ def main() -> int:
     train_launches = timed(sec, "train", phase_train, torch, cfg, params_f32)
     del params_f32
     timed(sec, "train_parity", phase_train_parity, torch, cfg)
-    mlstm = timed(sec, "mlstm_chunk", phase_mlstm, torch)
     xcfg, xparams = timed(sec, "init_xlstm", init_xlstm, torch)
     xlstm_launches = timed(sec, "serve_xlstm", phase_serve_xlstm, torch,
                            xcfg, xparams)
@@ -1241,7 +1305,10 @@ def main() -> int:
              adam_head, ADAM_HEADLINE, {}),
             ("mlstm_chunk", "src/repro/kernels/mlstm_chunk.py:87",
              mlstm_err, mlstm[MLSTM_HEADLINE], MLSTM_HEADLINE,
-             mlstm_extra)):
+             {**mlstm_extra,
+              **{k: mlstm[MLSTM_HEADLINE][k]
+                 for k in ("path", "fma_floor_ms",
+                           "cuda_kernels_per_call")}})):
         total, by_path = launches(name)
         rows.append({
             "name": name, "route": "cuda",

@@ -9,10 +9,16 @@ as well: prefill hands it to decode as the cache.
 q/k/v are (B, S, H, hd) in f32 or bf16, g/i (B, S, H) f32 log gates; the
 result is y (B, S, H, hd) f32 and a ``ScanState`` (loga (B,H), m (B,H),
 C (B,H,hd,hd), n (B,H,hd)), all f32.  The kernel and the plain version
-walk the sequence in chunks of different lengths (32 positions on the
-card; 128 or the whole of S in the plain version), so their states hold
-the same true memory ``C * exp(m)`` under different stabilizers m: compare
-them through a ``recurrence_step``, not raw.
+walk the sequence in chunks that may differ (128 positions on the wgmma
+path, 32 on the CUDA-core path; 128 or the whole of S in the plain
+version), so their states hold the same true memory ``C * exp(m)`` under
+different stabilizers m: compare them through a ``recurrence_step``, not
+raw.
+
+The kernel has two paths (``csrc/mlstm_chunk.cu``); ``choose_path`` picks
+one by dtype, head dim and alignment, a pure function of the inputs'
+shapes, tested without a card.  The wgmma path makes two CUDA kernels a
+call (the chunk states, then the outputs), the CUDA-core path one.
 
 A CPU tensor goes to the plain version (``mlstm_plain.linear_recurrence``).
 A CUDA tensor launches the kernel or raises; nothing falls back.  The
@@ -28,15 +34,43 @@ import math
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import aligned16
 from repro_torch.kernels.mlstm_plain import ScanState, linear_recurrence
 
 NAME = "mlstm_chunk"
-#: positions per chunk in the CUDA kernel (CH in csrc/mlstm_chunk.cu)
-CHUNK = 32
+#: positions per chunk on the wgmma path (TC_CH in csrc/mlstm_chunk.cu),
+#: the Pallas kernel's default chunk
+CHUNK = 128
+#: the kernel's paths, with their codes in the C interface
+PATHS = {"simt": 0, "wgmma": 1}
+#: the CUDA kernels one call launches on each path, by function name
+PATH_KERNELS = {"simt": ("mlstm_fwd",),
+                "wgmma": ("mlstm_state_tc", "mlstm_out_tc")}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
-             + [ctypes.c_longlong] * 15 + [ctypes.c_float, ctypes.c_void_p])
+             + [ctypes.c_longlong] * 15
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_void_p])
+
+
+def choose_path(dtype, hd: int, aligned: bool) -> str:
+    """The kernel path for a call: ``"wgmma"`` (tensor cores) for bf16
+    q/k/v whose pointers and strides are 16-byte aligned and whose head dim
+    is a multiple of 64 (the path copies 16 bytes at a time and tiles the
+    head dim by 64); ``"simt"`` (CUDA cores) for the rest: f32 (only the
+    parity runs use it), hd 16 or 32, and views off 16-byte alignment."""
+    if dtype == torch.bfloat16 and hd % 64 == 0 and aligned:
+        return "wgmma"
+    return "simt"
+
+
+def scratch_floats(B: int, S: int, H: int, hd: int) -> int:
+    """f32 words of the wgmma path's scratch: the state entering each chunk
+    after the first (C as bf16 hi and lo, n, m), written by the state
+    kernel for the outputs kernel.  0 when S fits one chunk."""
+    entering = (-(-S // CHUNK) - 1) * B * H
+    return entering * (hd * hd + hd + 1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -87,6 +121,10 @@ def _launch(q, k, v, g, i):
     n = torch.empty((B, H, hd), **f32)
     m = torch.empty((B, H), **f32)
     loga = torch.empty((B, H), **f32)
+    path = choose_path(q.dtype, hd, aligned16(q, k, v))
+    scratch = None
+    if path == "wgmma" and scratch_floats(B, S, H, hd):
+        scratch = torch.empty(scratch_floats(B, S, H, hd), **f32)
     fn = _kernel_fn()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
@@ -95,10 +133,12 @@ def _launch(q, k, v, g, i):
                  m.data_ptr(), loga.data_ptr(), _DTYPE_CODE[q.dtype],
                  B, S, H, hd, *q.stride()[:3], *k.stride()[:3],
                  *v.stride()[:3], *g.stride(), *i.stride(),
-                 1.0 / math.sqrt(hd), stream)
+                 1.0 / math.sqrt(hd), PATHS[path],
+                 None if scratch is None else scratch.data_ptr(), stream)
     if err == -1:
         raise ValueError(f"mlstm_chunk: csrc/mlstm_chunk.cu takes no "
-                         f"head_dim {hd} (see value_tile there)")
+                         f"head_dim {hd} (16, 32 or a multiple of 64 up "
+                         f"to 512)")
     if err < 0:
         raise ValueError(f"mlstm_chunk: the kernel refused its arguments "
                          f"(code {err})")

@@ -7,7 +7,15 @@ its chunk machinery).  The recurrence over chunk states
 
 runs in chunkwise-parallel form: quadratic (attention-like) math inside a
 chunk and a sequential scan over chunk states.  Outputs are normalized and
-scaled by 1/sqrt(dq), as the xLSTM block (the only caller) asks.  The JAX
+scaled by 1/sqrt(dq), as the xLSTM block (the only caller) asks.
+
+One departure from JAX's f32 arithmetic: the cumulative log decay ``lg``
+within a chunk is summed in f64.  The chunk form takes differences
+``lg_t - lg_s`` of two sums of up to a chunk of log gates; with gates near
+log(sigmoid(-10)) |lg| reaches hundreds, and in f32 each difference then
+carries ~1e-4 of rounding into every exponent, which puts the output
+outside 5e-4 of the sequential oracle (``ref.reference_mlstm``) where the
+normalizer cancels.  In f64 the differences keep f32 precision.  The JAX
 module also shards the sequence over the "model" axis under the
 ``train_sp`` layout; that branch waits for the port's multi-GPU layer
 (ROADMAP A.15).
@@ -74,23 +82,24 @@ def _chunk_states(k, v, g, i) -> ScanState:
 
     k: (B, nc, c, h, dq); v: (B, nc, c, h, dv); g/i: (B, nc, c, h).
     """
-    lg = torch.cumsum(g, dim=2)
+    lg = torch.cumsum(g.double(), dim=2)      # f64: see the module note
     tot = lg[:, :, -1]                        # (B, nc, h)
-    w = tot[:, :, None] - lg + i              # carry-to-chunk-end log weight
+    # carry-to-chunk-end log weight
+    w = (tot[:, :, None] - lg).float() + i
     m_loc = torch.amax(w, dim=2)              # (B, nc, h)
     sc = torch.exp(w - m_loc[:, :, None])
     C = torch.einsum("bnchq,bnchv->bnhqv", sc[..., None] * k, v)
     n = torch.einsum("bnch,bnchq->bnhq", sc, k)
-    return ScanState(loga=tot, m=m_loc, C=C, n=n)
+    return ScanState(loga=tot.float(), m=m_loc, C=C, n=n)
 
 
 def _chunk_outputs(q, k, v, g, i, ent: ScanState):
     """Normalized outputs for every position given the entering state of
     each chunk."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    lg = torch.cumsum(g, dim=2)                          # (B,nc,c,h)
+    lg = torch.cumsum(g.double(), dim=2)                 # (B,nc,c,h), f64
     # intra-chunk log decay matrix D[t,s] = lg_t - lg_s + i_s (s <= t)
-    D = (lg[:, :, :, None, :] - lg[:, :, None, :, :]
+    D = ((lg[:, :, :, None, :] - lg[:, :, None, :, :]).float()
          + i[:, :, None, :, :])                          # (B,nc,t,s,h)
     c = q.shape[2]
     tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=q.device))
@@ -98,14 +107,14 @@ def _chunk_outputs(q, k, v, g, i, ent: ScanState):
                     torch.full_like(D, NEG))
     m_intra = torch.amax(D, dim=3)                       # (B,nc,t,h)
     lg_e = lg + ent.m[:, :, None, :]                     # inter log scale
-    m_out = torch.maximum(lg_e, m_intra)
+    m_out = torch.maximum(lg_e.float(), m_intra)
     W = torch.exp(D - m_out[:, :, :, None, :])           # (B,nc,t,s,h)
     qf = q.float()
     dot = torch.einsum("bnthq,bnshq->bntsh", qf, k.float()) * scale
     WS = W * dot
     num = torch.einsum("bntsh,bnshv->bnthv", WS, v.float())
     den = torch.sum(WS, dim=3)                           # (B,nc,t,h)
-    sc_e = torch.exp(lg_e - m_out)                       # (B,nc,t,h)
+    sc_e = torch.exp((lg_e - m_out).float())             # (B,nc,t,h)
     qC = torch.einsum("bnthq,bnhqv->bnthv", qf, ent.C) * scale
     qn = torch.einsum("bnthq,bnhq->bnth", qf, ent.n) * scale
     num = num + sc_e[..., None] * qC

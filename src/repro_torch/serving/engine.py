@@ -30,7 +30,7 @@ def _to_device(tree, device):
 class ServeEngine:
     cfg: object
     params: dict
-    max_len: int = 512          # most cache slots a request may fill
+    max_len: int = 512          # unused, as in JAX: caches grow to S + n_new
     device: Optional[str] = None  # None = the card; raises without one
 
     def __post_init__(self):
@@ -47,9 +47,6 @@ class ServeEngine:
         the same ids, but not JAX's ids.
         """
         B, S = tokens.shape
-        if S + n_new > self.max_len:
-            raise ValueError(f"prompt {S} + {n_new} new tokens exceed "
-                             f"max_len={self.max_len}")
         dev = self.device
         gen = torch.Generator(device=dev).manual_seed(seed)
         with torch.inference_mode():

@@ -72,11 +72,18 @@ def test_engine_without_device_needs_a_card(monkeypatch):
         ServeEngine(t_tiny(), {})
 
 
-def test_generate_refuses_past_max_len():
-    _, engine, prompts = _engines("bench_tiny")
-    engine.max_len = 10
-    with pytest.raises(ValueError, match="max_len"):
-        engine.generate(prompts, n_new=4)
+@pytest.mark.parametrize("name", ["qwen2-0.5b", "xlstm-350m"])
+def test_generate_past_max_len_equals_jax(name):
+    """A request of 507 prompt and 6 new tokens passes the default
+    max_len of 512; JAX never reads max_len (its caches grow to S +
+    n_new), and the port serves the same greedy ids."""
+    jax_engine, engine, _ = _engines(name)
+    prompt = np.random.default_rng(1).integers(
+        0, engine.cfg.vocab_size, (1, 507), dtype=np.int32)
+    assert prompt.shape[1] + 6 > engine.max_len == jax_engine.max_len
+    want = jax_engine.generate(prompt, n_new=6, temperature=0.0)
+    got = engine.generate(prompt, n_new=6, temperature=0.0)
+    np.testing.assert_array_equal(got, want)
 
 
 def _imports(path):
