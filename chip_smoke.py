@@ -61,6 +61,28 @@ Phases, one JSON line each; any failure exits non-zero:
   train_parity   the same psum step at full width and 2 layers, f32, W = 4,
                  2 steps, on the CPU (plain versions) and on the card
                  (kernels): loss, aggregated gradient, m, v and p
+  dmm_twin       the jax.random twin on the card against the CPU at the
+                 controller's shapes: split, fold_in, uniform and
+                 categorical bits equal, normals within rtol 1e-6
+  dmm_fit        RuntimeModel(158, lag 20), the same init on the CPU and
+                 the card, 60 ELBO steps at batch 8 on paper_cluster_158:
+                 the loss trajectories agree within 2e-3 of their scale
+  dmm_parity     CutoffController(k_samples=32, seed=0, device backend) on
+                 the card against the numpy backend over 100
+                 paper_cluster_158(seed=7) steps: identical cutoffs, window
+                 rows within 2e-3, >= 50 censored steps, > 1 cutoff, one
+                 graph a mode and one replay a decision
+  dmm_timing     n = 8 and 158, K = 64: device µs of one decision (graph
+                 replay), wall µs of observe and of predict_cutoff, the
+                 CUDA kernels of one replay, the graphs captured
+  train_dmm      the train phase's full-width psum setup driven by
+                 CutoffController(k_samples=48) on a DMM fitted on the card
+                 (ClusterSim(8, 2 nodes, seed 0), 200 steps): 5 steps, each
+                 asserting the launch counts, a finite loss and one graph
+                 replay a decision; prints c, the clock (and the first-k
+                 clock of train), wall ms, predict_cutoff µs and the
+                 decision's device µs; then 6 more steps alternating
+                 first-k and the DMM, wall ms each (train_dmm_ab)
   serve_xlstm    full-width xlstm-350m (bf16, seeded init) through
                  ServeEngine.generate: 4 prompts x 128 tokens, 32 greedy new
                  tokens; asserts 21 mlstm_chunk launches (the mLSTM
@@ -836,7 +858,7 @@ def phase_train(torch, cfg, params_f32):
                            timer=ClusterSim(n_workers=W, n_nodes=2, seed=7))
     want = {"flash_attention": cfg.n_layers * W, "masked_grad_agg": 1,
             "fused_adam": 1}
-    totals = {}
+    totals, clocks = {}, []
     torch.cuda.synchronize()
     seconds = {"setup": time.perf_counter() - t_setup}
     t_steps = time.perf_counter()
@@ -855,6 +877,7 @@ def phase_train(torch, cfg, params_f32):
               f"{launches}, want {want}")
         check(bool(np.isfinite(rec["loss"])),
               f"step {rec['step']}: loss {rec['loss']}")
+        clocks.append(rec["clock"])
         emit("train", mask_agg="psum", step=rec["step"], wall_ms=wall * 1e3,
              tokens_per_s=B * S / wall, c=rec["c"], n=rec["n"],
              loss=rec["loss"], clock=rec["clock"], launches=launches,
@@ -898,7 +921,7 @@ def phase_train(torch, cfg, params_f32):
          seconds=dict(seconds, weights_step=time.perf_counter() - t_weights))
     del tr, opt, params
     torch.cuda.empty_cache()
-    return totals
+    return totals, clocks
 
 
 def _scaled_err(torch, got, want):
@@ -989,6 +1012,297 @@ def phase_train_parity(torch, cfg_full):
     check(tight_err <= tight_tol, f"p differs by {tight_err} > {tight_tol} "
           f"where |g| is well above noise")
     check(loose_err <= loose_tol, f"p differs by {loose_err} > {loose_tol}")
+
+
+# ---------------------------------------------------------------------------
+# The DMM decision path.  It has no kernel of its own: plain torch ops,
+# captured as one CUDA graph per controller mode and replayed once a step.
+# ---------------------------------------------------------------------------
+
+NORMAL_TOL = (1e-6, 1e-7)   # (rtol, atol) of tests/test_torch_random.py
+FIT_TOL = 2e-3              # of the loss trajectory's largest |value|
+WINDOW_TOL = 2e-3           # rtol = atol, tests/test_controller_device.py
+
+
+def _twin_check(torch):
+    """(a) The jax.random twin on the card against the twin on the CPU, at
+    the shapes the controller draws: bits equal for split, fold_in,
+    uniform and categorical; normals within NORMAL_TOL."""
+    from repro_torch import random as R
+    from repro_torch.core.runtime_model import api
+
+    logits = torch.randn((4, 151936), generator=torch.Generator()
+                         .manual_seed(SEED)) * 3.0
+    out = {"bits_equal": [], "normal_max_abs_err": 0.0,
+           "normal_bit_equal_share": 1.0, "tol": NORMAL_TOL}
+
+    def draws(seed, dev):
+        key = R.PRNGKey(seed, device=dev)
+        k1, k2, k3, _ = R.split(key, 4)
+        steps = R.split(k1, 21)
+        return {"split": R.split(key, 4),
+                "split_steps": steps,
+                "fold_in": api._colwise_keys(k3, 158),
+                "uniform": api.colwise_uniform(k2, 158).view(torch.int32),
+                "categorical": R.categorical(key, logits.to(dev)),
+                "normal_guide": R.normal(steps, (64, 32)),
+                "normal_transition": R.normal(k2, (64, 32)),
+                "normal_colwise": api.colwise_normal(k3, 64, 158)}
+
+    for seed in (0, 7, 1_000_010):
+        cpu, gpu = draws(seed, "cpu"), draws(seed, "cuda")
+        for name, a in cpu.items():
+            b = gpu[name].cpu()
+            if name.startswith("normal"):
+                err = float((a - b).abs().max())
+                out["normal_max_abs_err"] = max(out["normal_max_abs_err"],
+                                                err)
+                share = float((a.view(torch.int32) == b.view(torch.int32))
+                              .float().mean())
+                out["normal_bit_equal_share"] = min(
+                    out["normal_bit_equal_share"], share)
+                check(torch.allclose(b, a, rtol=NORMAL_TOL[0],
+                                     atol=NORMAL_TOL[1]),
+                      f"twin {name} (seed {seed}): card and CPU normals "
+                      f"differ by {err}")
+            else:
+                check(torch.equal(a, b), f"twin {name} (seed {seed}): card "
+                      f"and CPU bits differ")
+    out["bits_equal"] = [k for k in cpu if not k.startswith("normal")]
+    return out
+
+
+def _rel_close(a, b, tol):
+    return bool(np.all(np.abs(a - b) <= tol + tol * np.abs(b)))
+
+
+def phase_dmm(torch):
+    """(a) the twin, (b) the fit on card and CPU, (c) 100 steps of the
+    device backend on the card against the numpy backend, (d) timing."""
+    from repro_torch.cluster.simulator import ClusterSim, paper_cluster_158
+    from repro_torch.core.controller import CutoffController
+    from repro_torch.core.cutoff import order_stats
+    from repro_torch.core.runtime_model.api import RuntimeModel
+
+    t0 = time.perf_counter()
+    twin = _twin_check(torch)
+    emit("dmm_twin", **twin, seconds=time.perf_counter() - t0)
+
+    # (b) the same init on both devices, 60 ELBO steps at batch 8
+    trace = paper_cluster_158(seed=0).run(60)
+    losses, fit_s, models = {}, {}, {}
+    for dev in ("cpu", "cuda"):
+        t0 = time.perf_counter()
+        rm = RuntimeModel(158, lag=20, device=dev).init(0)
+        losses[dev] = np.asarray(rm.fit(trace, steps=60, batch=8, seed=0))
+        fit_s[dev] = time.perf_counter() - t0
+        models[dev] = rm
+    scale = float(np.abs(losses["cpu"]).max())
+    fit_err = float(np.abs(losses["cuda"] - losses["cpu"]).max())
+    emit("dmm_fit", n=158, lag=20, steps=60, batch=8,
+         loss_first=[losses[d][0] for d in ("cpu", "cuda")],
+         loss_last=[losses[d][-1] for d in ("cpu", "cuda")],
+         max_abs_err=fit_err, scale=scale, tol=FIT_TOL * scale,
+         seconds=fit_s)
+    check(fit_err <= FIT_TOL * scale, f"fit: card and CPU losses differ by "
+          f"{fit_err} > {FIT_TOL} x {scale}")
+
+    # (c) the card's device backend against the port's f64 numpy backend,
+    # both on the card-fitted params
+    rm = models["cuda"]
+    dev = CutoffController(rm, k_samples=32, seed=0, backend="device")
+    ref = CutoffController(rm.to("cpu"), k_samples=32, seed=0,
+                           backend="numpy")
+    dev.seed_window(trace)
+    ref.seed_window(trace)
+    sim = paper_cluster_158(seed=7)
+    cutoffs, censored, win_err = [], 0, 0.0
+    t0 = time.perf_counter()
+    for step in range(100):
+        c_dev, c_ref = dev.predict_cutoff(), ref.predict_cutoff()
+        check(c_dev == c_ref, f"dmm parity step {step}: cutoff {c_dev} on "
+              f"the card, {c_ref} from the numpy backend")
+        cutoffs.append(c_dev)
+        times = sim.step()
+        mask = times <= order_stats.iter_time(times, c_dev) + 1e-12
+        censored += int(not mask.all())
+        dev.observe(times, mask)
+        ref.observe(times, mask)
+        a, b = dev.window_array()[-1], ref.window_array()[-1]
+        win_err = max(win_err, float(np.abs(a - b).max()))
+        check(_rel_close(a, b, WINDOW_TOL), f"dmm parity step {step}: "
+              f"window rows differ by {win_err}")
+    modes = sorted(k[0] for k in dev.graphs)
+    emit("dmm_parity", steps=100, k_samples=32, cutoffs=cutoffs,
+         distinct_cutoffs=len(set(cutoffs)), censored_steps=censored,
+         window_max_abs_err=win_err, window_tol=WINDOW_TOL,
+         graphs=[list(map(str, k)) for k in dev.graphs],
+         replays=dev.replays, seconds=time.perf_counter() - t0)
+    check(censored >= 50, f"only {censored} censored steps")
+    check(len(set(cutoffs)) > 1, "one cutoff for every step")
+    check(len(modes) == len(set(modes)) and all(k[1] for k in dev.graphs),
+          f"graphs {list(dev.graphs)}: want one decision graph a mode")
+    check(dev.replays == 101, f"{dev.replays} graph replays for 101 "
+          f"decisions")
+
+    # (d) timing at n = 8 and n = 158, K = 64, lag 20
+    timing = {}
+    for n in (8, 158):
+        sims = ((lambda s: ClusterSim(n_workers=8, n_nodes=2, seed=s))
+                if n == 8 else (lambda s: paper_cluster_158(seed=s)))
+        tr = sims(3).run(40)
+        rm = RuntimeModel(n, lag=20, device="cuda").init(1)
+        rm.norm_scale = float(2.0 * tr[:21].mean())
+        ctl = CutoffController(rm, k_samples=64, seed=0)
+        ctl.seed_window(tr)
+        sim = sims(4)
+        obs_us, pred_us = [], []
+        for i in range(45):
+            t0 = time.perf_counter()
+            c = ctl.predict_cutoff()
+            t1 = time.perf_counter()
+            times = sim.step()
+            mask = times <= order_stats.iter_time(times, c) + 1e-12
+            t2 = time.perf_counter()
+            ctl.observe(times, mask)
+            t3 = time.perf_counter()
+            if i >= 5:        # the first steps capture the graphs
+                pred_us.append((t1 - t0) * 1e6)
+                obs_us.append((t3 - t2) * 1e6)
+        key = max(ctl.graphs, key=lambda k: k[0] == "censored")
+        graph = ctl.graphs[key]
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        reps = 50
+        start.record()
+        for _ in range(reps):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        per = kernels_per_call(torch, graph.replay)
+        top = sorted(per.items(), key=lambda kv: -kv[1]["per_call"]
+                     * kv[1]["us"])[:5]
+        timing[n] = {
+            "graph": list(map(str, key)),
+            "decision_device_us": start.elapsed_time(end) / reps * 1e3,
+            "observe_wall_us": float(np.median(obs_us)),
+            "predict_cutoff_wall_us": float(np.median(pred_us)),
+            "observe_plus_predict_wall_us": float(np.median(
+                np.add(obs_us, pred_us))),
+            "cuda_kernels_per_replay": sum(v["per_call"]
+                                           for v in per.values()),
+            "top_kernels": {k[:60]: v for k, v in top},
+            "graphs_captured": len(ctl.graphs)}
+        emit("dmm_timing", n=n, k_samples=64, lag=20, **timing[n])
+        del ctl, graph
+    torch.cuda.empty_cache()
+    return timing
+
+
+def phase_train_dmm(torch, cfg, params_f32, firstk_clocks):
+    """Full-width qwen2-0.5b psum training (the train phase's setup) with
+    the paper's controller: the DMM fitted on the card as
+    examples/quickstart.py fits it, CutoffController(rm, k_samples=48)
+    seeded with that trace.  Each step asserts the train phase's launch
+    counts, a finite loss and one graph replay a decision; per step it
+    prints the cutoff, the simulated clock, wall ms, predict_cutoff's
+    wall µs and the device µs of the decision(s) launched in the step (CUDA
+    events on the controller's stream around its launches).  Then the
+    same trainer alternates first-k and the DMM for 6 steps, adjacent in
+    time, to compare their wall per step."""
+    from repro_torch.cluster.simulator import ClusterSim
+    from repro_torch.core.controller import CutoffController, FirstKController
+    from repro_torch.core.runtime_model.api import RuntimeModel
+    from repro_torch.kernels import build
+
+    W, S, B, n_steps = 8, 128, 16, 5
+    t_setup = time.perf_counter()
+    trace = ClusterSim(n_workers=W, n_nodes=2, seed=0).run(200)
+    rm = RuntimeModel(n_workers=W, lag=20, device="cuda").init(0)
+    t0 = time.perf_counter()
+    fit = rm.fit(trace, steps=200, batch=8)
+    fit_s = time.perf_counter() - t0
+    ctl = CutoffController(rm, k_samples=48)
+    ctl.seed_window(trace)
+    params = cast(params_f32, "cuda", torch.bfloat16)
+    tr, _ = _train_setup(torch, cfg, params, n_workers=W, seq=S, batch=B,
+                         controller=ctl,
+                         timer=ClusterSim(n_workers=W, n_nodes=2, seed=7))
+
+    # instrumentation on this instance only: host clock around
+    # predict_cutoff, CUDA events around each fused launch
+    predict_us, launches_ev = [], []
+    predict, launch = ctl.predict_cutoff, ctl._launch
+
+    def timed_predict():
+        t0 = time.perf_counter()
+        c = predict()
+        predict_us.append((time.perf_counter() - t0) * 1e6)
+        return c
+
+    def timed_launch(mode, decide):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record(ctl._stream)
+        launch(mode, decide)
+        ev[1].record(ctl._stream)
+        launches_ev.append(ev)
+
+    ctl.predict_cutoff, ctl._launch = timed_predict, timed_launch
+    want = {"flash_attention": cfg.n_layers * W, "masked_grad_agg": 1,
+            "fused_adam": 1}
+    totals = {}
+    torch.cuda.synchronize()
+    emit("train_dmm_setup", fit_steps=200, fit_batch=8, fit_seconds=fit_s,
+         fit_loss_first=fit[0], fit_loss_last=fit[-1],
+         norm_scale=rm.norm_scale, k_samples=48,
+         seconds=time.perf_counter() - t_setup)
+    for i in range(n_steps):
+        build.LAUNCHES.clear()
+        n_ev, replays = len(launches_ev), ctl.replays
+        t0 = time.perf_counter()
+        rec = tr.run(1)[-1]        # drains the loss: ends in a device sync
+        wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        step_ev = launches_ev[n_ev:]
+        for ev in step_ev:
+            ev[1].synchronize()
+        check(launches == want, f"dmm psum step {rec['step']}: launches "
+              f"{launches}, want {want}")
+        check(bool(np.isfinite(rec["loss"])),
+              f"dmm step {rec['step']}: loss {rec['loss']}")
+        check(ctl.replays - replays == len(step_ev) == (2 if i == 0 else 1),
+              f"dmm step {rec['step']}: {ctl.replays - replays} replays "
+              f"for {len(step_ev)} decisions")
+        emit("train_dmm", mask_agg="psum", step=rec["step"],
+             wall_ms=wall * 1e3, tokens_per_s=B * S / wall, c=rec["c"],
+             n=rec["n"], loss=rec["loss"], clock=rec["clock"],
+             firstk_clock=(firstk_clocks[i] if i < len(firstk_clocks)
+                           else None),
+             predict_cutoff_wall_us=predict_us[-1],
+             decision_device_us=[s.elapsed_time(e) * 1e3
+                                 for s, e in step_ev],
+             launches=launches, graphs=len(ctl.graphs),
+             max_memory_allocated=torch.cuda.max_memory_allocated())
+    # the wall cost of the controller itself: psum steps of the same
+    # trainer alternating first-k and the DMM (A B A B A B), adjacent in
+    # time; not asserted
+    firstk = FirstKController(W, backup=2)
+    walls = {"firstk": [], "dmm": []}
+    for i in range(6):
+        name = "dmm" if i % 2 else "firstk"
+        tr.controller = ctl if i % 2 else firstk
+        t0 = time.perf_counter()
+        tr.run(1)
+        walls[name].append((time.perf_counter() - t0) * 1e3)
+    emit("train_dmm_ab", order="firstk,dmm x3", wall_ms=walls,
+         median_ms={k: float(np.median(v)) for k, v in walls.items()})
+    del tr, params, ctl
+    torch.cuda.empty_cache()
+    return totals
 
 
 def _mlstm_inputs(torch, B, S, H, hd, dtname, gates, gen):
@@ -1262,9 +1576,13 @@ def main() -> int:
     agg, agg_err = timed(sec, "masked_grad_agg", phase_masked_agg, torch)
     shapes = [tuple(x.shape) for x in tree.leaves(params_f32)]
     adam, adam_err = timed(sec, "fused_adam", phase_fused_adam, torch, shapes)
-    train_launches = timed(sec, "train", phase_train, torch, cfg, params_f32)
-    del params_f32
+    train_launches, firstk_clocks = timed(sec, "train", phase_train, torch,
+                                          cfg, params_f32)
     timed(sec, "train_parity", phase_train_parity, torch, cfg)
+    timed(sec, "dmm", phase_dmm, torch)
+    dmm_launches = timed(sec, "train_dmm", phase_train_dmm, torch, cfg,
+                         params_f32, firstk_clocks)
+    del params_f32
     xcfg, xparams = timed(sec, "init_xlstm", init_xlstm, torch)
     xlstm_launches = timed(sec, "serve_xlstm", phase_serve_xlstm, torch,
                            xcfg, xparams)
@@ -1276,6 +1594,7 @@ def main() -> int:
     def launches(name):
         by_path = {"serve": serve_launches.get(name, 0),
                    "train_psum_5_steps": train_launches.get(name, 0),
+                   "train_dmm": dmm_launches.get(name, 0),
                    "serve_xlstm": xlstm_launches.get(name, 0)}
         return sum(by_path.values()), by_path
 

@@ -1,4 +1,4 @@
-"""Baseline cutoff controllers (the numpy-only part of ``repro.core.controller``).
+"""Cutoff controllers — the parameter-server decision logic (paper Alg. 1).
 
 Each controller implements::
 
@@ -6,14 +6,40 @@ Each controller implements::
     ctl.observe(times, finished_mask)   # after the step (lines 25-26)
 
 and ``resize(n_workers, col_map=None, model=None, members=None)`` for
-elastic membership.  These are copies of the JAX package's prior-art
-baselines: full sync, Chen et al.'s static cutoff and their backup-worker
-(first-k) rule.  The paper's DMM controller needs the runtime model and a
-twin of ``jax.random``, and comes with a later slice.
+elastic membership.  The port of ``repro.core.controller``:
+
+  * CutoffController — the paper's method: DMM + amortized inference, MC
+    order statistics, censored imputation.  ``backend="device"`` keeps
+    the lag window in a ring buffer on the model's device; ``observe``
+    uploads one packed row and launches ONE fused observe+decide
+    (:func:`_observe_decide_core`: censored-imputation append + guide →
+    transition → emission → sample → sort → argmax → predictive moments)
+    for the next step.  On the card that is one replay of a captured CUDA
+    graph on the controller's own stream, so it overlaps the workers'
+    compute, and ``predict_cutoff`` only waits for the cutoff in pinned
+    host memory — the single host/device sync per step.  On the CPU the
+    same body runs eagerly.  ``backend="numpy"`` is the float64 host
+    reference the device path is held against.
+  * FullSyncController, StaticCutoffController (Chen et al.'s fixed
+    cutoff) and FirstKController (their backup workers): copies of the
+    prior-art baselines.
+
+The analytic Elfving baseline, the anytime / stale-reuse wrappers and the
+elastic controller are not ported yet (ROADMAP A.6).
 """
 from __future__ import annotations
 
+import contextlib
+import math
+from dataclasses import dataclass, field
 from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch import random as R
+from repro_torch.core.cutoff import censoring, order_stats
+from repro_torch.core.runtime_model.api import RuntimeModel, colwise_uniform
 
 
 class FullSyncController:
@@ -84,3 +110,502 @@ class FirstKController(FullSyncController):
 
     # resize: FullSyncController already tracks the live width; the backup
     # count deliberately stays fixed (it is provisioned capacity).
+
+
+# ---------------------------------------------------------------------------
+# Elastic membership: window remapping across worker-set changes.
+# ---------------------------------------------------------------------------
+
+
+def remap_columns(rows: np.ndarray, n_new: int,
+                  col_map: Optional[np.ndarray] = None) -> np.ndarray:
+    """Remap (T, n_old) worker-indexed rows onto a resized worker set.
+
+    ``col_map`` is (n_new,) of old column indices — survivors carry their
+    runtime series over column-exactly — with ``-1`` marking NEW workers,
+    whose column is seeded row-by-row from the cluster mean of the
+    surviving columns.  Default: identity prefix (old worker i -> new
+    column i, extra columns new).
+    """
+    rows = np.asarray(rows)
+    if rows.ndim != 2:
+        raise ValueError(f"rows must be (T, n), got {rows.shape}")
+    n_old = rows.shape[1]
+    if col_map is None:
+        col_map = np.concatenate([
+            np.arange(min(n_old, n_new)),
+            np.full(max(0, n_new - n_old), -1, int)])
+    col_map = np.asarray(col_map, int)
+    if col_map.shape != (n_new,):
+        raise ValueError(f"col_map must be ({n_new},), got {col_map.shape}")
+    if np.any(col_map >= n_old):
+        raise ValueError(f"col_map references old columns >= {n_old}")
+    surv = col_map[col_map >= 0]
+    fill = (rows[:, surv].mean(axis=1) if surv.size
+            else rows.mean(axis=1))
+    out = np.where((col_map >= 0)[None, :],
+                   rows[:, np.clip(col_map, 0, n_old - 1)],
+                   fill[:, None])
+    return out.astype(rows.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The fused observe+decide: one body, run eagerly on the CPU and captured
+# once per (mode, decide, k_samples, lo, n) as a CUDA graph on the card.
+#
+# Its state is a dict of fixed tensors (:func:`_state`): the (lag+1, n)
+# f32 ring and its 0-d int64 head (the OLDEST row); ``obs``, one packed
+# f64 upload per step: the (n,) times, the (n,) finished mask, the decide
+# key and the impute key (32-bit words are exact in f64); and the outputs
+# of the last decision: samples, moments and ``pack``, the cutoff beside
+# the bits of E[x_(c)] (one 8-byte fetch).  The censored append reads the
+# moments of the decision the previous predict_cutoff consumed, which are
+# still in the output tensors when it runs.
+# ---------------------------------------------------------------------------
+
+
+def _state(n: int, cap: int, k_samples: int, device) -> dict:
+    f32 = dict(dtype=torch.float32, device=device)
+    return {"ring": torch.zeros((cap, n), **f32),
+            "head": torch.zeros((), dtype=torch.int64, device=device),
+            "obs": torch.zeros((2 * n + 4,), dtype=torch.float64,
+                               device=device),
+            "samples": torch.zeros((k_samples, n), **f32),
+            "mu": torch.zeros((n,), **f32),
+            "std": torch.zeros((n,), **f32),
+            "pack": torch.zeros((2,), dtype=torch.int32, device=device)}
+
+
+def _append_core(st: dict, mode: str):
+    """Ring append in place; ``mode`` picks the imputation.
+
+    "plain": censored entries take the observed cutoff time (warmup
+    fallback, and the full-sync case).  "censored": fused truncated-normal
+    imputation (paper §4.2) — the uniform draw, the inverse-CDF, the
+    where-merge and the ring write all stay on the device.
+    """
+    ring, head, obs = st["ring"], st["head"], st["obs"]
+    cap, n = ring.shape
+    times = obs[:n].to(torch.float32)
+    mask = obs[n:2 * n] > 0.5
+    cutoff_time = torch.max(torch.where(mask, times, -math.inf))
+    if mode == "censored":
+        u = colwise_uniform(obs[2 * n + 2:].to(torch.int64), n)
+        row = censoring.impute_censored_torch(times, mask, st["mu"],
+                                              st["std"], cutoff_time, u)
+    else:
+        row = torch.where(mask, times, cutoff_time)
+    ring.index_copy_(0, head.reshape(1), row[None])
+    head.copy_((head + 1) % cap)
+
+
+def _observe_decide_core(params, st: dict, *, mode: str, decide: bool,
+                         k_samples: int, lo: int, norm_scale: float):
+    """One whole controller iteration on the state ``st``, in place: flush
+    the deferred observation (``mode`` "plain" or "censored"; "none"
+    skips it) into the ring, then, when ``decide``, run the full decision
+    on the updated window and write its outputs."""
+    if mode != "none":
+        _append_core(st, mode)
+    if not decide:
+        return
+    n = st["ring"].shape[1]
+    key = st["obs"][2 * n:2 * n + 2].to(torch.int64)
+    cutoff, samples, mu, std, it = RuntimeModel._decide_core(
+        params, st["ring"], st["head"], key, norm_scale, k_samples, lo)
+    st["samples"].copy_(samples)
+    st["mu"].copy_(mu)
+    st["std"].copy_(std)
+    st["pack"].copy_(torch.stack([cutoff, it.view(torch.int32)]))
+
+
+def _impute_key(seed: int, step: int):
+    """The words of the per-step key both backends draw imputation
+    uniforms from: ``fold_in(PRNGKey(seed + 1_000_003), step)``, hashed
+    on the host from python ints.  Offset so it can never collide with the
+    prediction keys (``PRNGKey(seed + step)``)."""
+    return R.threefry2x32(0, (seed + 1_000_003) & 0xFFFFFFFF,
+                          0, step & 0xFFFFFFFF)
+
+
+@dataclass
+class CutoffController:
+    """The paper's dynamic controller (DMM + amortized inference).
+
+    Keeps the lag-l window of (imputed) runtime vectors; each iteration:
+      1. predict K samples of the next joint runtime vector (Eq. 5),
+      2. c* = argmax_c E[c / x_(c)]  (throughput-optimal cutoff),
+      3. after the step, impute censored runtimes from the predictive
+         distribution left-truncated at the observed cutoff time (§4.2).
+
+    ``backend="device"`` (default): the window lives in a (lag+1, n) f32
+    ring on the model's device; ``observe`` uploads one packed row and
+    launches the fused append+decide for the next step (on the card: one
+    graph replay on the controller's stream), and ``predict_cutoff``
+    fetches the cutoff.  A capture that fails raises; nothing falls back
+    to eager launches on the card.  ``backend="numpy"``: the float64 host
+    reference.  Both draw the same imputation uniforms
+    (``colwise_uniform`` under :func:`_impute_key`), so their cutoff
+    sequences are identical and their windows agree to f32 precision on
+    seeded runs.
+    """
+    model: RuntimeModel
+    k_samples: int = 64
+    min_frac: float = 0.5
+    seed: int = 0
+    backend: str = "device"
+
+    _window: list = field(default_factory=list)       # numpy backend
+    _st: Optional[dict] = None                        # device backend
+    _count: int = 0
+    _pending_pred: Optional[tuple] = None
+    _pending_step: Optional[int] = None   # step of the decision in flight
+    _last_iter: Optional[object] = None   # E[x_(c)] of the last decision
+    _step: int = 0
+    #: CUDA graphs by (mode, decide, k_samples, lo, n), and what they
+    #: captured: the params tree and the norm scale
+    graphs: dict = field(default_factory=dict)
+    #: graph replays on the card (one a decision or warmup append)
+    replays: int = 0
+    _graph_model: Optional[tuple] = None
+    _stream: Optional[object] = None
+    _event: Optional[object] = None
+    _obs_host: Optional[torch.Tensor] = None
+    _pack_host: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        if self.backend not in ("device", "numpy"):
+            raise ValueError(f"unknown backend {self.backend!r}")
+
+    @property
+    def n(self) -> int:
+        return self.model.n_workers
+
+    @property
+    def _cap(self) -> int:
+        return self.model.lag + 1
+
+    @property
+    def warmed_up(self) -> bool:
+        if self.backend == "numpy":
+            return len(self._window) >= self._cap
+        return self._count >= self._cap
+
+    # -- device state ---------------------------------------------------
+    def _ensure_ring(self):
+        if self._st is not None:
+            return
+        dev = self.model.device
+        self._st = _state(self.n, self._cap, self.k_samples, dev)
+        self.graphs = {}
+        if dev.type == "cuda":
+            self._stream = torch.cuda.Stream(dev)
+            self._event = torch.cuda.Event()
+            self._obs_host = torch.zeros(self._st["obs"].shape,
+                                         dtype=torch.float64, pin_memory=True)
+            self._pack_host = torch.zeros((2,), dtype=torch.int32,
+                                          pin_memory=True)
+        else:
+            self._stream = self._event = None
+            self._obs_host, self._pack_host = self._st["obs"], self._st["pack"]
+
+    @contextlib.contextmanager
+    def _on_stream(self):
+        """Device work on the controller's stream, its end marked by the
+        controller's event (on the CPU: nothing to order)."""
+        if self._stream is None:
+            yield
+            return
+        with torch.cuda.stream(self._stream):
+            yield
+            self._event.record(self._stream)
+
+    def _wait(self):
+        """Block until the controller's device work is done (the pinned
+        buffers may then be read and rewritten)."""
+        if self._event is not None:
+            self._event.synchronize()
+
+    def _launch(self, mode: str, decide: bool):
+        """Run the fused body on the state: eagerly on the CPU; on the card
+        upload the packed row, replay the graph for this shape (captured at
+        its first use) and fetch ``pack`` into pinned host memory."""
+        lo = order_stats.min_frac_floor(self.n, self.min_frac)
+        params, norm_scale = self.model.params, self.model.norm_scale
+
+        def run(st):
+            _observe_decide_core(params, st, mode=mode, decide=decide,
+                                 k_samples=self.k_samples, lo=lo,
+                                 norm_scale=norm_scale)
+
+        if self._stream is None:
+            run(self._st)
+            return
+        if self._graph_model is None or any(
+                a is not b for a, b in zip((params, norm_scale),
+                                           self._graph_model)):
+            self.graphs = {}               # a new model: capture anew
+            self._graph_model = (params, norm_scale)
+        with self._on_stream():
+            self._st["obs"].copy_(self._obs_host, non_blocking=True)
+        key = (mode, decide, self.k_samples, lo, self.n)
+        if key not in self.graphs:
+            self.graphs[key] = self._capture(run)
+        with self._on_stream():
+            self.graphs[key].replay()
+            self.replays += 1
+            if decide:
+                self._pack_host.copy_(self._st["pack"], non_blocking=True)
+
+    def _capture(self, run):
+        """Capture ``run(state)`` as a CUDA graph on the controller's
+        stream.  It first runs once, eagerly, on a copy of the state (the
+        libraries' lazy set-up must not happen inside the capture, and the
+        warm-up must not step the real ring).  A capture that fails
+        raises."""
+        with self._on_stream():
+            run({k: v.clone() for k, v in self._st.items()})
+        self._wait()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=self._stream):
+            run(self._st)
+        return graph
+
+    def _pack(self, times=None, mask=None, decide_step=None,
+              impute_step=None):
+        """Write the step's packed upload (host side)."""
+        self._wait()
+        o, n = self._obs_host.numpy(), self.n
+        if times is not None:
+            o[:n] = np.asarray(times, np.float32)
+            o[n:2 * n] = (np.ones(n) if mask is None
+                          else np.asarray(mask, bool))
+        if decide_step is not None:
+            o[2 * n:2 * n + 2] = (0, (self.seed + decide_step) & 0xFFFFFFFF)
+        if impute_step is not None:
+            o[2 * n + 2:] = _impute_key(self.seed, impute_step)
+
+    # -- window plumbing ------------------------------------------------
+    def window_array(self) -> np.ndarray:
+        """The current lag window, oldest row first, as a numpy array.
+
+        Raises ValueError while the window is empty (both backends).
+        """
+        if self.backend == "numpy":
+            if not self._window:
+                raise ValueError("window is empty")
+            return np.stack(self._window[-self._cap:])
+        self._ensure_ring()
+        if self._count == 0:
+            raise ValueError("window is empty")
+        self._wait()
+        ring = self._st["ring"].cpu().numpy()
+        w = np.roll(ring, -int(self._st["head"]), axis=0)
+        return w[-self._count:] if self._count < self._cap else w
+
+    def seed_window(self, traces: np.ndarray):
+        """Warm-start the lag window from recorded traces.
+
+        Device backend: built host-side and uploaded in ONE transfer (the
+        rows as f32, verbatim, as a plain append with a full mask writes
+        them)."""
+        rows = np.asarray(traces)[-self._cap:]
+        if self.backend == "numpy":
+            for row in rows:
+                self._window.append(np.asarray(row, np.float64))
+            return
+        self._ensure_ring()
+        self._pending_step = None
+        merged = np.asarray(rows, np.float32)
+        if self._count:
+            merged = np.concatenate(
+                [np.asarray(self.window_array(), np.float32), merged])
+        merged = merged[-self._cap:]
+        m = merged.shape[0]
+        ring = np.zeros((self._cap, self.n), np.float32)
+        ring[:m] = merged
+        self._wait()
+        with self._on_stream():
+            self._st["ring"].copy_(torch.from_numpy(ring))
+            self._st["head"].fill_(m % self._cap)
+        self._count = min(self._count + rows.shape[0], self._cap)
+
+    def resize(self, n_workers: int, col_map=None,
+               model: Optional[RuntimeModel] = None, members=None):
+        """Remap the lag window across a worker-set change.
+
+        Survivor columns (``col_map`` entries >= 0) move column-exactly
+        into the resized ring; NEW workers' columns are seeded from the
+        per-row cluster mean of the survivors (:func:`remap_columns`).
+        ``model`` must be a :class:`RuntimeModel` of the NEW width (the
+        DMM's emission layer is shaped by n_workers); the device backend
+        captures its graphs anew for it.
+        """
+        n_new = int(n_workers)
+        model = model if model is not None else self.model
+        if model.n_workers != n_new:
+            raise ValueError(
+                f"resize({n_new}) needs a RuntimeModel of that width, got "
+                f"n_workers={model.n_workers}; refit first")
+        have_rows = (len(self._window) > 0 if self.backend == "numpy"
+                     else self._count > 0)
+        rows = self.window_array() if have_rows else None
+        self.model = model
+        self._pending_step = None
+        self._pending_pred = None
+        self._last_iter = None
+        if self.backend == "numpy":
+            self._window = []
+            if rows is not None:
+                remapped = remap_columns(np.asarray(rows, np.float64), n_new,
+                                         col_map)
+                self._window = [row for row in remapped]
+            return
+        self._wait()
+        self._st = None
+        self._graph_model = None
+        self._count = 0
+        self._ensure_ring()
+        if rows is not None:
+            self.seed_window(remap_columns(rows, n_new, col_map))
+
+    def _dispatch_decision(self, mode: str, step: int, times=None,
+                           mask=None):
+        """Launch the fused observe+decide for ``step`` (asynchronous on
+        the card: nothing waits until the cutoff is read)."""
+        self._pack(times, mask, decide_step=step,
+                   impute_step=self._step if mode == "censored" else None)
+        self._launch(mode, decide=True)
+        self._pending_step = step
+
+    # -- decision -------------------------------------------------------
+    def predict_cutoff(self) -> int:
+        self._step += 1
+        if not self.warmed_up:
+            self._pending_pred = None
+            return self.n
+        if self.backend == "numpy":
+            w = np.stack(self._window[-self._cap:])
+            samples, mu, std = self.model.predict_next(
+                w, self.k_samples, seed=self.seed + self._step)
+            # per-worker predictive moments (for censoring) from MC samples:
+            # the K draws form a Gaussian mixture, so the variance is
+            # E[std^2] + Var[mu] (mixture-variance law)
+            self._pending_pred = (
+                mu.mean(axis=0),
+                np.sqrt(np.mean(std ** 2, axis=0) + mu.var(axis=0)),
+                samples)
+            c = order_stats.optimal_cutoff(samples, self.min_frac)
+            # lazy: the extra sort only runs if a scheduler actually asks
+            self._last_iter = ("lazy", samples, c)
+            return c
+        if self._pending_step != self._step:
+            # no decision in flight for this step (first decision after
+            # warmup/seeding, or out-of-cadence call): launch one now
+            self._dispatch_decision("none", self._step)
+        self._pending_step = None
+        st = self._st
+        self._pending_pred = (st["mu"], st["std"], st["samples"])
+        # the ONLY host/device sync on the decision path: the cutoff (and
+        # the bits of E[x_(c)] beside it) in pinned host memory
+        self._wait()
+        pack = self._pack_host.numpy()
+        self._last_iter = float(pack[1:].view(np.float32)[0])
+        return int(pack[0])
+
+    def predicted_samples(self):
+        """The predictive sample cloud (K, n) behind the decision just
+        made: the device backend's output tensor (valid until the next
+        ``observe``), the numpy backend's host samples.  None before
+        warmup and after ``observe`` consumed the cache."""
+        if self._pending_pred is None:
+            return None
+        return self._pending_pred[2]
+
+    def predicted_iter_time(self):
+        """Posterior-predictive E[x_(c)] of the step just decided (raw
+        seconds); None before the first warmed-up decision.  The device
+        backend gets it out of the fused decision's shared sort; the numpy
+        backend computes it here, on demand."""
+        if self._last_iter is None:
+            return None
+        if isinstance(self._last_iter, tuple):
+            _, samples, c = self._last_iter
+            self._last_iter = float(
+                np.sort(samples, axis=1)[:, c - 1].mean())
+        return float(self._last_iter)
+
+    def predicted_order_stats(self):
+        """(mean, std) of predicted order statistics for the next step.
+
+        Reuses the samples drawn by the preceding ``predict_cutoff``;
+        after ``observe`` consumed them, a fresh prediction over the
+        updated window.
+        """
+        if not self.warmed_up:
+            return None
+        samples = self.predicted_samples()
+        if samples is not None:
+            samples = (samples.cpu().numpy()
+                       if isinstance(samples, torch.Tensor) else samples)
+        else:
+            samples, _, _ = self.model.predict_next(
+                self.window_array(), self.k_samples,
+                seed=self.seed + self._step)
+        return order_stats.mc_order_stats(samples)
+
+    # -- observation ----------------------------------------------------
+    def observe(self, times, finished_mask=None):
+        if finished_mask is not None and not bool(np.any(finished_mask)):
+            # no coherent cutoff time exists: the device path would impute
+            # at max(where(False, ..)) = -inf and poison the ring
+            raise ValueError(
+                "observe got an all-False finished_mask: a step with zero "
+                "finished workers has no observed cutoff time to impute "
+                "the censored entries at")
+        if self.backend == "numpy":
+            return self._observe_numpy(times, finished_mask)
+        self._ensure_ring()
+        all_finished = finished_mask is None or bool(np.all(finished_mask))
+        mode = ("plain" if self._pending_pred is None or all_finished
+                else "censored")
+        if self._pending_pred is not None:
+            # the moments stay valid for the append; the sample cache does
+            # not survive a window change
+            self._pending_pred = self._pending_pred[:2] + (None,)
+        self._count = min(self._count + 1, self._cap)
+        if self.warmed_up:
+            # pipeline: fuse this append (imputation included) with the
+            # NEXT step's decision and launch it now, so the decision runs
+            # while the workers compute (paper §1: the controller must
+            # decide faster than the workers step)
+            self._dispatch_decision(mode, self._step + 1, times,
+                                    finished_mask)
+        else:
+            self._pack(times, finished_mask,
+                       impute_step=self._step if mode == "censored" else None)
+            self._launch(mode, decide=False)
+
+    def _observe_numpy(self, times, finished_mask=None):
+        t = np.asarray(times, np.float64)
+        if self._pending_pred is not None:
+            # moments stay valid for a repeated observe; the sample cache
+            # does not survive a window change
+            self._pending_pred = self._pending_pred[:2] + (None,)
+        # every read uses only the last lag+1 rows
+        del self._window[:-self._cap]
+        if finished_mask is None or bool(np.all(finished_mask)):
+            self._window.append(t)
+            return
+        mask = np.asarray(finished_mask, bool)
+        cutoff_time = float(t[mask].max())
+        if self._pending_pred is None:
+            # warmup fallback: impute with the max observed time
+            imputed = np.where(mask, t, cutoff_time)
+        else:
+            mu, std = self._pending_pred[0], self._pending_pred[1]
+            key = torch.tensor(_impute_key(self.seed, self._step))
+            u = colwise_uniform(key, t.shape[0]).numpy().astype(np.float64)
+            imputed = censoring.impute_censored(t, mask, mu, std,
+                                                cutoff_time, u=u)
+        self._window.append(imputed)

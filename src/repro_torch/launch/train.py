@@ -71,7 +71,11 @@ def _split(batch, parts: int):
 
 def _device_batch(batch, device):
     """Batch arrays onto the params' device; the psum ``mask`` stays on the
-    host (the step reads it there to pick each worker's microbatches)."""
+    host (the step reads it there to pick each worker's microbatches).
+    The positions are checked here, on the host, against the train
+    forward's contract (``models.model.check_positions``)."""
+    if "positions" in batch:
+        M.check_positions(batch["positions"])
     out = {}
     for k, v in batch.items():
         if k == "mask":

@@ -14,6 +14,7 @@ import math
 from dataclasses import dataclass
 from typing import List, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -197,16 +198,38 @@ def lm_logits(cfg, params, x):
 # ---------------------------------------------------------------------------
 
 
+def check_positions(positions):
+    """Train and prefill attention masks by index, so their positions must
+    be 0..S-1 on every row; others (offset, packed) raise ``ValueError``
+    rather than get a mask other than JAX's.  Only host data is checked:
+    numpy arrays and CPU tensors.  A tensor on the card is never read (that
+    would wait for the device); ``launch.train`` checks its batches while
+    they are still numpy."""
+    if isinstance(positions, torch.Tensor):
+        if positions.device.type != "cpu":
+            return
+        positions = positions.numpy()
+    pos = np.asarray(positions)
+    if not np.array_equal(pos, np.broadcast_to(np.arange(pos.shape[-1]),
+                                               pos.shape)):
+        raise ValueError(
+            "train and prefill take positions 0..S-1 on every row (their "
+            "attention masks by index, not by position); offset or packed "
+            "positions are not supported")
+
+
 def forward(cfg, params, batch, mode: str = "prefill", caches=None,
             pos=None):
     """Train, prefill or decode.
 
     batch: tokens (B, S) and positions (B, S).  RoPE reads
     ``batch["positions"]``, as the JAX forward does, but the attention mask
-    of train and prefill assumes the positions are 0..S-1 (the flash
-    kernel's aligned-suffix rule), which every caller of the port gives
-    (``SyntheticTokens`` and the serving engine).  Decode has S == 1, a host
-    int ``pos`` and ``caches``.
+    of train and prefill is by index (the flash kernel's aligned-suffix
+    rule), where JAX masks by position: so train and prefill take the
+    positions 0..S-1 on every row (``SyntheticTokens`` and the serving
+    engine give them) and raise ``ValueError`` for others given on the
+    host (:func:`check_positions`).  Decode has S == 1, a host int ``pos``
+    and ``caches``.
 
     Returns (logits, caches, aux): train gives the full (B, S, V) logits
     and no caches; prefill gives the last position's logits (B, 1, V) and
@@ -221,6 +244,8 @@ def forward(cfg, params, batch, mode: str = "prefill", caches=None,
     if cfg.is_encoder_decoder or "patch_embeds" in batch:
         raise NotImplementedError(
             "encoder-decoder and vision inputs are not ported yet")
+    if mode != "decode":
+        check_positions(batch["positions"])
     x = embed_tokens(cfg, params, batch["tokens"])
     ctx = Ctx(mode=mode, positions=batch["positions"], pos=pos)
     new_caches = []

@@ -14,6 +14,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import random as R
 from repro_torch import resolve_device
 from repro_torch.models import model as M
 
@@ -42,13 +43,14 @@ class ServeEngine:
                  temperature: float = 0.0, seed: int = 0) -> np.ndarray:
         """tokens: (B, S) prompt -> (B, n_new) generated ids (int32).
 
-        Greedy decoding is argmax.  Temperature decoding draws Gumbel noise
-        from a ``torch.Generator`` seeded with ``seed``: the same seed gives
-        the same ids, but not JAX's ids.
+        Greedy decoding is argmax.  Temperature decoding draws from the
+        ``jax.random`` twin as JAX does: ``categorical`` with ``PRNGKey(seed)``
+        for the first token, then with a key split off once a token, so the
+        same seed gives JAX's ids.
         """
         B, S = tokens.shape
         dev = self.device
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        key = R.PRNGKey(seed, device=dev)
         with torch.inference_mode():
             toks = torch.as_tensor(tokens, dtype=torch.int64, device=dev)
             positions = torch.arange(S, device=dev).expand(B, S)
@@ -56,23 +58,23 @@ class ServeEngine:
                 self.cfg, self.params, {"tokens": toks, "positions": positions})
             caches = M.pad_caches(caches, S + n_new)
             out = []
-            nxt = self._sample(last_logits, temperature, gen)
+            nxt = self._sample(last_logits, temperature, key)
             for t in range(n_new):
                 # keep the loop sync-free: collect DEVICE tensors; ``pos``
                 # is a host int, so no launch waits on the card
                 out.append(nxt)
                 logits, caches = M.decode_step(self.cfg, self.params,
                                                nxt[:, None], S + t, caches)
-                nxt = self._sample(logits[:, 0], temperature, gen)
+                # greedy ids never read a key: split only when sampling
+                key, sub = R.split(key) if temperature > 0.0 else (key, None)
+                nxt = self._sample(logits[:, 0], temperature, sub)
             # the ONE fetch: all n_new tokens come back in a single copy
             # after the loop has been fully enqueued
             ids = torch.stack(out, dim=1).cpu()
         return ids.numpy().astype(np.int32)
 
     @staticmethod
-    def _sample(logits, temperature, gen):
+    def _sample(logits, temperature, key):
         if temperature <= 0.0:
             return torch.argmax(logits, dim=-1)
-        u = torch.rand(logits.shape, generator=gen, device=logits.device)
-        gumbel = -torch.log(-torch.log(u))
-        return torch.argmax(logits.float() / temperature + gumbel, dim=-1)
+        return R.categorical(key, logits / temperature, axis=-1)

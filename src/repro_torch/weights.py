@@ -17,7 +17,9 @@ after ``jax.tree.map(np.asarray, params)`` and returns the dicts that
   layer dicts, the sLSTM cell as its own ``slstm`` dict (``w``, ``r``,
   ``bias``).
 
-``state_from_jax`` carries a whole train state ``{"params", "opt"}``.
+``state_from_jax`` carries a whole train state ``{"params", "opt"}``, and
+``runtime_model_from_jax`` a DMM ``RuntimeModel``'s params (dicts and
+lists of arrays, carried whole) with its ``norm_scale``.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core.runtime_model.api import RuntimeModel
 from repro_torch.models.model import build_segments, layer_specs
 
 
@@ -39,6 +42,8 @@ def _tensor(a, device):
 def _tree(node, device, index=None):
     if isinstance(node, dict):
         return {k: _tree(v, device, index) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [_tree(v, device, index) for v in node]
     a = np.asarray(node)
     return _tensor(a if index is None else a[index], device)
 
@@ -76,3 +81,17 @@ def state_from_jax(cfg, state_np, device=None):
         else:
             opt[name] = from_jax(cfg, val, device)
     return {"params": from_jax(cfg, state_np["params"], device), "opt": opt}
+
+
+def runtime_model_from_jax(params_np, norm_scale: float, *, lag: int = 20,
+                           device=None):
+    """A reference ``RuntimeModel``'s params (``jax.tree.map(np.asarray,
+    rm.params)``) and ``norm_scale`` -> the port's ``RuntimeModel`` on
+    ``device``; the widths are read off the params."""
+    dmm = params_np["dmm"]
+    z_dim, hidden = np.asarray(dmm["trans_h"][0]["w"]).shape
+    n_workers = np.asarray(dmm["emit_std"][0]["w"]).shape[0]
+    rm = RuntimeModel(n_workers, lag=lag, z_dim=z_dim, hidden=hidden,
+                      norm_scale=float(norm_scale), device=device)
+    rm.params = _tree(params_np, rm.device)
+    return rm

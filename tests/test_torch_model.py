@@ -15,9 +15,12 @@ import torch
 from repro.configs.base import bench_tiny_config as j_tiny
 from repro.configs.base import get_config as jget
 from repro.models import model as JM
+from repro_torch import optim as toptim
 from repro_torch import weights
 from repro_torch.configs.base import bench_tiny_config as t_tiny
 from repro_torch.configs.base import get_config as tget
+from repro_torch.data.pipeline import SyntheticTokens
+from repro_torch.launch import train as TT
 from repro_torch.models import model as TM
 
 torch.set_num_threads(2)
@@ -144,3 +147,39 @@ def test_other_block_kinds_name_their_slice(name):
     tc = tget(name).reduced()
     with pytest.raises(NotImplementedError, match="not ported"):
         TM.init_model(tc, torch.Generator().manual_seed(0), device="cpu")
+
+
+def test_packed_positions_raise_where_jax_masks_by_position(monkeypatch):
+    """Packed positions ``[0, 1, 2, 0, 1, 2]``: JAX masks attention by
+    position (key index <= query position), the port's train and prefill
+    by index (the flash kernel's rule).  Without the check (the parent's
+    forward) the first segment agrees and the second does not; so the port
+    refuses the batch, as CPU tensors in ``forward`` and as numpy in the
+    train step, and the 0..S-1 callers run as before."""
+    jc, tc, jp, tp, toks = _setup("qwen2-0.5b")
+    toks = toks[:, :6]
+    packed = np.array([[0, 1, 2, 0, 1, 2]] * B, np.int32)
+    jl = np.asarray(jax.jit(lambda p, b: JM.forward(jc, p, b, mode="train")[0])(
+        jp, {"tokens": jnp.asarray(toks), "positions": jnp.asarray(packed)}))
+    batch = {"tokens": torch.as_tensor(toks).long(),
+             "positions": torch.as_tensor(packed)}
+    with monkeypatch.context() as m:
+        m.setattr(TM, "check_positions", lambda positions: None)
+        unchecked = TM.forward(tc, tp, batch, mode="train")[0].numpy()
+    np.testing.assert_allclose(unchecked[:, :3], jl[:, :3], atol=ATOL)
+    assert np.abs(unchecked[:, 3:] - jl[:, 3:]).max() > 1e-2
+
+    for mode in ("train", "prefill"):
+        with pytest.raises(ValueError, match="0..S-1"):
+            TM.forward(tc, tp, batch, mode=mode)
+    data = SyntheticTokens(tc.vocab_size, 6, B, seed=0)
+    step = TT.make_train_step(tc, toptim.sgd(0.1))
+    state = {"params": tp, "opt": toptim.sgd(0.1).init(tp)}
+    ones = np.ones(B, np.float32)
+    with pytest.raises(ValueError, match="0..S-1"):
+        step(state, dict(data.batch(0), positions=packed, weights=ones))
+    _, metrics = step(state, dict(data.batch(0), weights=ones))
+    assert np.isfinite(float(metrics["loss"]))
+    # an offset start (positions 5..10) is refused too
+    with pytest.raises(ValueError, match="0..S-1"):
+        TM.check_positions(np.arange(5, 11)[None])

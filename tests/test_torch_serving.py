@@ -4,8 +4,8 @@ port's import boundary.
 Greedy ids are identical to JAX's for the reduced qwen2-0.5b, the bench
 tiny config and the reduced xlstm-350m (same weights, carried across with
 ``weights.from_jax``).
-Temperature decoding is seeded: the same seed gives the same ids (they are
-not JAX's ids: the port draws from a ``torch.Generator``).
+Temperature decoding draws from the port's ``jax.random`` twin with JAX's
+key schedule, so the same seed gives JAX's ids too.
 """
 import ast
 from pathlib import Path
@@ -64,6 +64,18 @@ def test_temperature_decode_seeded_determinism():
     hot = engine.generate(prompts, n_new=8, temperature=2.0, seed=7)
     assert not np.array_equal(greedy, hot)
     assert np.all((0 <= hot) & (hot < engine.cfg.vocab_size))
+
+
+@pytest.mark.parametrize("name", ["qwen2-0.5b", "xlstm-350m"])
+def test_temperature_ids_equal_jax(name):
+    """``categorical`` from ``PRNGKey(seed)`` for the first token, then
+    from a key split off once a token, as the JAX engine draws."""
+    jax_engine, engine, prompts = _engines(name)
+    for seed in (0, 7):
+        want = jax_engine.generate(prompts, n_new=8, temperature=0.8,
+                                   seed=seed)
+        got = engine.generate(prompts, n_new=8, temperature=0.8, seed=seed)
+        np.testing.assert_array_equal(got, want)
 
 
 def test_engine_without_device_needs_a_card(monkeypatch):
