@@ -83,6 +83,19 @@ Phases, one JSON line each; any failure exits non-zero:
                  clock of train), wall ms, predict_cutoff µs and the
                  decision's device µs; then 6 more steps alternating
                  first-k and the DMM, wall ms each (train_dmm_ab)
+  train_policies the same full-width psum setup under the other straggler
+                 policies, reusing train_dmm's fitted model: stale reuse
+                 (StaleReuseController over the DMM, decay 0.5, 5 steps
+                 with 2 masked_grad_agg launches each) checkpointed at
+                 step 2 (seconds and bytes of the save and the restore;
+                 ~6 GB in the temporary directory, checked free first);
+                 a fresh trainer resumed from it bit-equal to the
+                 uninterrupted run over 2 steps; decay 0 bit-equal to
+                 discard from the same checkpoint; Elfving (a cut after
+                 its warm-up); anytime (n_micro 2, grad_accum 2, a
+                 fractional contribution); int8 error-feedback
+                 compression (the residual within half a quantization
+                 step); launches asserted every step, peak memory
   serve_xlstm    full-width xlstm-350m (bf16, seeded init) through
                  ServeEngine.generate: 4 prompts x 128 tokens, 32 greedy new
                  tokens; asserts 21 mlstm_chunk launches (the mLSTM
@@ -1302,6 +1315,280 @@ def phase_train_dmm(torch, cfg, params_f32, firstk_clocks):
          median_ms={k: float(np.median(v)) for k, v in walls.items()})
     del tr, params, ctl
     torch.cuda.empty_cache()
+    return totals, rm
+
+
+# ---------------------------------------------------------------------------
+# The straggler-policy frontier, compression and the checkpoint store on
+# the full-width psum setup: no kernel of their own; the fold, the Elfving
+# math and the compression are plain torch, the dropped mean and the
+# anytime combine go through masked_grad_agg.
+# ---------------------------------------------------------------------------
+
+CKPT_SLACK = 1.05   # free space wanted beyond the checkpoint's bytes
+
+
+def _cpu_copy(torch, t):
+    """Leaves of a tree as a list of CPU copies (bit-exact compares)."""
+    from repro_torch import tree
+
+    return [x.detach().to("cpu", copy=True) for x in tree.leaves(t)]
+
+
+def _bit_equal(torch, a, b):
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def phase_train_policies(torch, cfg, params_f32, rm):
+    """Full-width qwen2-0.5b psum training (train's setup: bf16, W 8, seq
+    128, batch 16, fused AdamW, ClusterSim(8, 2 nodes, seed 7)) under the
+    other straggler policies, with checkpoint/resume and compression:
+
+      1. stale reuse: StaleReuseController(CutoffController(rm, 48),
+         decay 0.5), 5 steps, 2 masked_grad_agg launches a step (the
+         fresh and the dropped mean); the Trainer checkpoints at step 2
+         (AsyncCheckpointer, a temporary directory);
+      2. resume: a fresh Trainer restored from step 2 (the timer advanced
+         to step 2) takes steps 3-4: params, m and v bit-equal to the
+         uninterrupted run's, the same c; then from the same checkpoint 2
+         steps with decay 0 against 2 discard steps (a plain psum step,
+         the bare CutoffController): params bit-equal;
+      3. Elfving: ElfvingController(8, warmup 2), 3 steps on
+         paper_cluster_158(seed 0, n_workers 8): c below 8 after the
+         warm-up (on ClusterSim(8, 2 nodes, seed 7) the runtimes' sd is
+         9% of their mean and Eq. 3 keeps every worker);
+      4. anytime: AnytimeController(FirstKController(8, 2), n_micro 2),
+         grad_accum 2, 2 steps: flash 2 x 24 x 8 a step, a contribution
+         strictly inside (0, 1);
+      5. compression: compress_pod_grads, 2 steps, the ef residual's
+         largest magnitude against the quantization step.
+
+    ``rm`` is train_dmm's fitted RuntimeModel; the window is seeded with
+    the trace it was fitted on.  Each trainer is freed before the next:
+    a psum step holds its (8, 494,032,768) f32 buffer."""
+    import shutil
+    import tempfile
+
+    from repro_torch import optim, tree
+    from repro_torch.checkpoint import store
+    from repro_torch.cluster.simulator import ClusterSim, paper_cluster_158
+    from repro_torch.core.controller import (AnytimeController,
+                                             CutoffController,
+                                             ElfvingController,
+                                             FirstKController,
+                                             StaleReuseController)
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.kernels import build
+    from repro_torch.launch.train import Trainer, make_train_step
+
+    W, S, B, L = 8, 128, 16, cfg.n_layers
+    want = {"flash_attention": L * W, "masked_grad_agg": 1, "fused_adam": 1}
+    want_stale = dict(want, masked_grad_agg=2)
+    trace = ClusterSim(n_workers=W, n_nodes=2, seed=0).run(200)
+    opt = optim.adamw(optim.cosine_schedule(3e-4, 2, 20), fused=True)
+    totals, out = {}, {"seconds": {}}
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+
+    def timer(steps=0):
+        sim = ClusterSim(n_workers=W, n_nodes=2, seed=7)
+        for _ in range(steps):
+            sim.step()
+        return sim
+
+    def dmm():
+        ctl = CutoffController(rm, k_samples=48)
+        ctl.seed_window(trace)
+        return ctl
+
+    def trainer(step_fn, controller, sim, params=None, **kw):
+        params = (params if params is not None
+                  else cast(params_f32, "cuda", torch.bfloat16))
+        tr = Trainer(step_fn=step_fn, data=SyntheticTokens(
+            vocab_size=cfg.vocab_size, seq_len=S, global_batch=B, seed=SEED),
+            controller=controller, timer=sim, n_workers=W, mask_agg="psum",
+            metrics_every=1, **kw)
+        return tr.restore_or_init(
+            lambda: {"params": params, "opt": opt.init(params)})
+
+    def drive(tr, n_steps, policy, want_l):
+        recs = []
+        for _ in range(n_steps):
+            build.LAUNCHES.clear()
+            t0 = time.perf_counter()
+            rec = tr.run(1)[-1]     # drains the loss: ends in a device sync
+            wall = time.perf_counter() - t0
+            launches = dict(build.LAUNCHES)
+            for k, v in launches.items():
+                totals[k] = totals.get(k, 0) + v
+            check(launches == want_l, f"{policy} step {rec['step']}: "
+                  f"launches {launches}, want {want_l}")
+            check(bool(np.isfinite(rec["loss"])),
+                  f"{policy} step {rec['step']}: loss {rec['loss']}")
+            emit("train_policies", policy=policy, step=rec["step"],
+                 wall_ms=wall * 1e3, c=rec["c"], n=rec["n"],
+                 loss=rec["loss"], clock=rec["clock"], launches=launches,
+                 max_memory_allocated=torch.cuda.max_memory_allocated())
+            recs.append(rec)
+        return recs
+
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        # (1) stale reuse, checkpointed at step 2
+        n_params = sum(x.numel() for x in tree.leaves(params_f32))
+        need = n_params * (2 + 4 + 4 + 2)   # bf16 p, f32 m and v, bf16 stale
+        free = shutil.disk_usage(ckpt_dir).free
+        check(free >= CKPT_SLACK * need, f"{ckpt_dir}: {free} bytes free, "
+              f"the checkpoint needs {need} (x {CKPT_SLACK})")
+        stale_step = make_train_step(cfg, opt, mask_agg="psum",
+                                     stale_reuse=True)
+        tr = trainer(stale_step, StaleReuseController(dmm(), decay=0.5),
+                     timer(), ckpt_dir=ckpt_dir, ckpt_every=2)
+        ckpt_s = {}
+        write, snapshot = store.save, store.AsyncCheckpointer.save
+
+        def timed_write(*args, **kw):
+            t0 = time.perf_counter()
+            path = write(*args, **kw)
+            ckpt_s["write"] = time.perf_counter() - t0
+            return path
+
+        def timed_snapshot(self, *args, **kw):
+            t0 = time.perf_counter()
+            snapshot(self, *args, **kw)
+            ckpt_s["snapshot"] = time.perf_counter() - t0
+
+        store.save, store.AsyncCheckpointer.save = timed_write, timed_snapshot
+        try:
+            recs = drive(tr, 2, "stale_reuse", want_stale)
+        finally:
+            store.save, store.AsyncCheckpointer.save = write, snapshot
+        tr.ckpt_dir = None                  # one checkpoint, at step 2
+        step_dir = Path(ckpt_dir) / f"step_{2:010d}"
+        ckpt_bytes = {p.name: p.stat().st_size for p in step_dir.iterdir()}
+        check(store.list_steps(ckpt_dir) == [2]
+              and store.groups(ckpt_dir, 2) == ["ctl", "meta", "stale",
+                                                "state"],
+              f"checkpoint {store.list_steps(ckpt_dir)}: groups "
+              f"{store.groups(ckpt_dir, 2)}")
+        recs += drive(tr, 2, "stale_reuse", want_stale)
+        after4 = (_cpu_copy(torch, tr.state["params"]),
+                  _cpu_copy(torch, tr.state["opt"]["m"]),
+                  _cpu_copy(torch, tr.state["opt"]["v"]))
+        recs += drive(tr, 1, "stale_reuse", want_stale)
+        check(min(r["c"] for r in recs) < W, f"stale reuse: no step "
+              f"dropped a worker: c {[r['c'] for r in recs]}")
+        out["stale_peak_bytes"] = torch.cuda.max_memory_allocated()
+        out["stale_c"] = [r["c"] for r in recs]
+        emit("train_policies_checkpoint", step=2, bytes=ckpt_bytes,
+             total_bytes=sum(ckpt_bytes.values()),
+             snapshot_s=ckpt_s["snapshot"], write_s=ckpt_s["write"],
+             free_bytes=free, stale_max_memory_allocated=out[
+                 "stale_peak_bytes"])
+        del tr
+        torch.cuda.empty_cache()
+
+        # (2) resume from step 2: bit-equal to the uninterrupted steps 3-4
+        t0 = time.perf_counter()
+        tr = trainer(stale_step, StaleReuseController(dmm(), decay=0.5),
+                     timer(2), ckpt_dir=ckpt_dir)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(tr.step == 2 and tr.controller._step == 2
+              and tr._stale is not None, f"restored step {tr.step}, "
+              f"controller step {tr.controller._step}")
+        resumed = drive(tr, 2, "stale_reuse_resumed", want_stale)
+        got = (_cpu_copy(torch, tr.state["params"]),
+               _cpu_copy(torch, tr.state["opt"]["m"]),
+               _cpu_copy(torch, tr.state["opt"]["v"]))
+        same = {k: _bit_equal(torch, a, b)
+                for k, a, b in zip(("params", "m", "v"), got, after4)}
+        same_c = [r["c"] for r in resumed] == out["stale_c"][2:4]
+        emit("train_policies_resume", restore_s=restore_s,
+             c=[r["c"] for r in resumed], uninterrupted_c=out["stale_c"][2:4],
+             bit_equal=same)
+        check(all(same.values()) and same_c, f"resumed run differs from "
+              f"the uninterrupted one: {same}, c {same_c}")
+        del tr, got, after4
+        torch.cuda.empty_cache()
+
+        # decay 0 against discard, both from the step-2 checkpoint
+        tr = trainer(stale_step, StaleReuseController(dmm(), decay=0.0),
+                     timer(2), ckpt_dir=ckpt_dir)
+        d0 = drive(tr, 2, "stale_decay0", want_stale)
+        d0_params = _cpu_copy(torch, tr.state["params"])
+        del tr, stale_step
+        torch.cuda.empty_cache()
+        plain_step = make_train_step(cfg, opt, mask_agg="psum")
+        tr = trainer(plain_step, dmm(), timer(2), ckpt_dir=ckpt_dir)
+        discard = drive(tr, 2, "discard", want)
+        same = _bit_equal(torch, _cpu_copy(torch, tr.state["params"]),
+                          d0_params)
+        emit("train_policies_decay0", c=[r["c"] for r in d0],
+             discard_c=[r["c"] for r in discard], params_bit_equal=same)
+        check(same and [r["c"] for r in d0] == [r["c"] for r in discard],
+              "decay 0 differs from discard")
+        del tr, d0_params
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    # (3) Elfving, on the discard step (its buffer reused)
+    tr = trainer(plain_step, ElfvingController(W, warmup=2),
+                 paper_cluster_158(seed=0, n_workers=W))
+    elf = drive(tr, 3, "elfving", want)
+    check(elf[-1]["c"] < W, f"elfving: c {[r['c'] for r in elf]}, want a "
+          f"cut after the warm-up")
+    del tr, plain_step
+    torch.cuda.empty_cache()
+
+    # (4) anytime: fractional contributions through the same kernel
+    contribs = []
+    ctl = AnytimeController(FirstKController(W, backup=2), n_micro=2)
+    contribution = ctl.contribution
+
+    def recorded(times, c):
+        contribs.append(contribution(times, c))
+        return contribs[-1]
+
+    ctl.contribution = recorded
+    tr = trainer(make_train_step(cfg, opt, mask_agg="psum", grad_accum=2),
+                 ctl, timer())
+    drive(tr, 2, "anytime", dict(want, flash_attention=2 * L * W))
+    fractional = [float(f) for fs in contribs for f in fs if 0 < f < 1]
+    emit("train_policies_anytime", contributions=[c.tolist()
+                                                  for c in contribs])
+    check(bool(fractional), f"anytime: no fractional contribution in "
+          f"{[c.tolist() for c in contribs]}")
+    del tr, ctl
+    torch.cuda.empty_cache()
+
+    # (5) compression: the optimizer sees the dequantized gradient
+    qstep = []
+
+    def update(grads, state, params=None):
+        qstep.append(torch.stack([g.float().abs().max()
+                                  for g in tree.leaves(grads)]) / 127.0)
+        return opt.update(grads, state, params)
+
+    qopt = optim.Optimizer(opt.init, update, opt.table)
+    tr = trainer(make_train_step(cfg, qopt, mask_agg="psum",
+                                 compress_pod_grads=True),
+                 FirstKController(W, backup=2), timer())
+    drive(tr, 2, "compressed", want)
+    ef_max = torch.stack([e.abs().max() for e in tree.leaves(
+        tr.state["ef"])])
+    ratio = float((ef_max / qstep[-1].clamp(min=1e-30)).max())
+    emit("train_policies_compression", ef_max_abs=float(ef_max.max()),
+         quant_step_max=float(qstep[-1].max()), ef_over_step_max=ratio,
+         ef_bytes=sum(e.numel() * 4 for e in tree.leaves(tr.state["ef"])))
+    # |ef| <= step / 2 per leaf; the step is read back from bf16 values
+    check(bool((ef_max <= 0.51 * qstep[-1] + 1e-12).all()),
+          f"ef residual beyond half a quantization step: {ratio}")
+    del tr, qopt
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    emit("train_policies_summary", **out, launches=totals)
     return totals
 
 
@@ -1580,8 +1867,11 @@ def main() -> int:
                                           cfg, params_f32)
     timed(sec, "train_parity", phase_train_parity, torch, cfg)
     timed(sec, "dmm", phase_dmm, torch)
-    dmm_launches = timed(sec, "train_dmm", phase_train_dmm, torch, cfg,
-                         params_f32, firstk_clocks)
+    dmm_launches, rm = timed(sec, "train_dmm", phase_train_dmm, torch, cfg,
+                             params_f32, firstk_clocks)
+    policy_launches = timed(sec, "train_policies", phase_train_policies,
+                            torch, cfg, params_f32, rm)
+    del rm
     del params_f32
     xcfg, xparams = timed(sec, "init_xlstm", init_xlstm, torch)
     xlstm_launches = timed(sec, "serve_xlstm", phase_serve_xlstm, torch,
@@ -1595,6 +1885,7 @@ def main() -> int:
         by_path = {"serve": serve_launches.get(name, 0),
                    "train_psum_5_steps": train_launches.get(name, 0),
                    "train_dmm": dmm_launches.get(name, 0),
+                   "train_policies": policy_launches.get(name, 0),
                    "serve_xlstm": xlstm_launches.get(name, 0)}
         return sum(by_path.values()), by_path
 

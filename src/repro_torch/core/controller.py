@@ -21,11 +21,14 @@ elastic membership.  The port of ``repro.core.controller``:
     same body runs eagerly.  ``backend="numpy"`` is the float64 host
     reference the device path is held against.
   * FullSyncController, StaticCutoffController (Chen et al.'s fixed
-    cutoff) and FirstKController (their backup workers): copies of the
-    prior-art baselines.
+    cutoff), FirstKController (their backup workers) and
+    ElfvingController (the analytic iid-normal "order" baseline, Eq. 3):
+    copies of the prior-art baselines.
+  * AnytimeController and StaleReuseController: the straggler-policy
+    wrappers, which keep any controller above for the cutoff and change
+    only what a dropped worker contributes.
 
-The analytic Elfving baseline, the anytime / stale-reuse wrappers and the
-elastic controller are not ported yet (ROADMAP A.6).
+The elastic controller is not ported yet (ROADMAP A.6).
 """
 from __future__ import annotations
 
@@ -38,7 +41,8 @@ import numpy as np
 import torch
 
 from repro_torch import random as R
-from repro_torch.core.cutoff import censoring, order_stats
+from repro_torch.cluster.simulator import microbatch_progress
+from repro_torch.core.cutoff import censoring, elfving, order_stats
 from repro_torch.core.runtime_model.api import RuntimeModel, colwise_uniform
 
 
@@ -110,6 +114,166 @@ class FirstKController(FullSyncController):
 
     # resize: FullSyncController already tracks the live width; the backup
     # count deliberately stays fixed (it is provisioned capacity).
+
+
+class ElfvingController(FullSyncController):
+    """Analytic normality baseline: running (mu, sigma) -> Eq. 3 cutoff."""
+
+    def __init__(self, n_workers: int, warmup: int = 5,
+                 min_frac: float = 0.5):
+        super().__init__(n_workers)
+        self.buf: list = []
+        self.warmup = warmup
+        self.min_frac = min_frac
+
+    def predict_cutoff(self) -> int:
+        if len(self.buf) < self.warmup:
+            return self.n
+        data = np.concatenate(self.buf[-50:])
+        return elfving.elfving_cutoff(self.n, float(data.mean()),
+                                      float(data.std()), self.min_frac)
+
+    def observe(self, times, finished_mask=None):
+        t = np.asarray(times, np.float64)
+        if finished_mask is not None:
+            m = np.asarray(finished_mask, bool)
+            if not m.any():
+                raise ValueError(
+                    "observe got an all-False finished_mask: a step with "
+                    "zero finished workers has no observed cutoff time to "
+                    "impute the censored entries at")
+            if not m.all():
+                # keeping only finished workers' times would bias the
+                # running (mu, sigma) toward the fast workers once cutoffs
+                # engage; a censored entry takes the observed cutoff time,
+                # a lower bound on its true runtime (§4.2's truncation,
+                # analytically)
+                t = np.where(m, t, t[m].max())
+        self.buf.append(t)
+
+
+# ---------------------------------------------------------------------------
+# Straggler-policy frontier: what a dropped worker contributes.
+#
+# The controllers above share one straggler policy, discard: a worker
+# outside the cutoff contributes nothing.  The two wrappers below keep any
+# of them for the CUTOFF decision and change only what the dropped workers
+# contribute (src/repro/core/README.md has the policy table).
+# ---------------------------------------------------------------------------
+
+
+class _PolicyWrapper:
+    """Delegating base for straggler-policy wrappers: the inner controller
+    owns the cutoff decision, the observe window, its step count and the
+    elastic resize protocol; the wrapper changes only the contribution
+    semantics."""
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    @property
+    def n(self) -> int:
+        return self.inner.n
+
+    @property
+    def _step(self) -> int:
+        # the decision keys are (seed, step): a checkpoint restores the
+        # inner controller's step through the wrapper (AttributeError, so
+        # ``hasattr`` is False, when the inner keeps none)
+        return self.inner._step
+
+    @_step.setter
+    def _step(self, value: int):
+        self.inner._step = value
+
+    def predict_cutoff(self) -> int:
+        return self.inner.predict_cutoff()
+
+    def observe(self, times, finished_mask=None):
+        return self.inner.observe(times, finished_mask)
+
+    def resize(self, n_workers: int, col_map=None, model=None,
+               members=None):
+        return self.inner.resize(n_workers, col_map=col_map, model=model,
+                                 members=members)
+
+    def _inner_call(self, name: str):
+        fn = getattr(self.inner, name, None)
+        return fn() if fn is not None else None
+
+    def predicted_order_stats(self):
+        return self._inner_call("predicted_order_stats")
+
+    def predicted_samples(self):
+        return self._inner_call("predicted_samples")
+
+    def predicted_iter_time(self):
+        return self._inner_call("predicted_iter_time")
+
+    def window_array(self) -> np.ndarray:
+        fn = getattr(self.inner, "window_array", None)
+        if fn is None:
+            # the contract of an empty CutoffController window: the
+            # checkpoint skips controllers with nothing to persist
+            raise ValueError("inner controller keeps no window")
+        return fn()
+
+    def seed_window(self, traces: np.ndarray):
+        fn = getattr(self.inner, "seed_window", None)
+        if fn is not None:
+            return fn(traces)
+
+
+class AnytimeController(_PolicyWrapper):
+    """Anytime SGD (Ferdinand & Draper): stragglers contribute PARTIAL
+    gradient sums at the cutoff instead of being discarded.
+
+    The inner controller picks the cutoff c; :meth:`contribution` returns
+    a per-worker f32 vector: 1.0 for the c finishers (tie-consistent with
+    the bit array), and for everyone else the fraction of its ``n_micro``
+    microbatches completed by the cutoff time
+    (``cluster.simulator.microbatch_progress``).  With ``n_micro=1`` the
+    vector is the discard bit array, bit for bit.  ``observe`` keeps the
+    discard policy's finished mask: a straggler's full-step runtime is
+    still censored at the cutoff time.
+    """
+
+    def __init__(self, inner, n_micro: int = 1):
+        super().__init__(inner)
+        if n_micro < 1:
+            raise ValueError(f"n_micro must be >= 1, got {n_micro}")
+        self.n_micro = int(n_micro)
+
+    def contribution(self, times, c: int) -> np.ndarray:
+        """Per-worker f32 contribution vector for a step decided at
+        cutoff ``c``."""
+        times = np.asarray(times, np.float64)
+        order = np.argsort(times, kind="stable")
+        cutoff_time = float(times[order[c - 1]])
+        contrib = microbatch_progress(times, cutoff_time,
+                                      self.n_micro).astype(np.float32)
+        contrib[order[:c]] = 1.0       # finishers, exactly (tie-consistent)
+        return contrib
+
+
+class StaleReuseController(_PolicyWrapper):
+    """Stale-gradient reuse (Dutta et al.): a dropped worker's LATE
+    gradient is buffered by the Trainer and folded into the NEXT step with
+    a staleness-decayed weight.
+
+    The wrapper carries only the policy knob: ``stale_decay`` is the
+    weight a one-step-stale gradient enters the next step's masked mean
+    with (a fresh gradient's is 1.0).  The Trainer detects the attribute
+    and the ``stale_reuse=True`` train step does the fold
+    (``launch.train.make_train_step``, mask_agg="psum" only).
+    ``stale_decay=0`` is exactly the discard policy.
+    """
+
+    def __init__(self, inner, decay: float = 0.5):
+        super().__init__(inner)
+        if not 0.0 <= decay <= 1.0:
+            raise ValueError(f"decay must be in [0, 1], got {decay}")
+        self.stale_decay = float(decay)
 
 
 # ---------------------------------------------------------------------------

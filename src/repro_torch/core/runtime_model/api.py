@@ -156,7 +156,7 @@ class RuntimeModel:
                 tree.map(lambda p: p.detach(), params), ups)
             losses.append(loss.detach())
             if verbose and i % 100 == 0:
-                print(f"  elbo step {i}: -elbo={float(loss):.3f}")
+                print(f"  elbo step {i}: -elbo={float(losses[-1]):.3f}")
         self.params = params
         return torch.stack(losses).tolist()
 

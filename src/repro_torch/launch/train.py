@@ -11,7 +11,11 @@ builds the step:
     combined by ONE pass of the Hopper ``masked_grad_agg`` kernel
     (``dist.collectives.masked_grad_mean``);
   * gradient accumulation over ``grad_accum`` microbatches, and anytime
-    (fractional) contributions on the psum path.
+    (fractional) contributions on the psum path;
+  * stale-gradient reuse (psum): the dropped workers' mean, a second
+    ``masked_grad_agg`` pass over the same buffer, folded into the next
+    step;
+  * int8 error-feedback compression of the aggregated gradient.
 
 The update is the optimizer's: with ``optim.adamw(..., fused=True)`` one
 Hopper ``fused_adam`` launch updates every parameter and both moments in
@@ -19,9 +23,9 @@ place, the port's counterpart of the JAX step's donated state.
 
 The ``Trainer`` is the host-side loop: controller -> bit array ->
 weights (or the bit array itself under ``mask_agg="psum"``), simulated
-(or measured) per-worker step times, and elastic resize.  Checkpoints,
-telemetry, stale-gradient reuse and pod-gradient compression are not
-ported yet (ROADMAP A.9, A.14).
+(or measured) per-worker step times, the stale-gradient buffer, elastic
+resize, and checkpoint/restart through ``checkpoint.store``.  Telemetry is
+not ported yet (ROADMAP A.14).
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch import optim, tree
+from repro_torch.checkpoint import store
 from repro_torch.dist import collectives
 from repro_torch.kernels import ops
 from repro_torch.models import model as M
@@ -104,9 +109,9 @@ def make_train_step(cfg, optimizer: optim.Optimizer, *,
                     mask_agg: str = "weights", stale_reuse: bool = False):
     """Returns train_step(state, batch) -> (state, metrics).
 
-    state = {"params", "opt"}; batch holds numpy arrays (``tokens``,
-    ``labels``, ``positions`` and ``weights`` or ``mask``) and goes to the
-    params' device.
+    state = {"params", "opt"[, "ef"]}; batch holds numpy arrays
+    (``tokens``, ``labels``, ``positions`` and ``weights`` or ``mask``) and
+    goes to the params' device.
 
     mask_agg="weights": batch["weights"] is the per-example cutoff mask
     expanded by ``dist.collectives.example_weights``.
@@ -124,18 +129,30 @@ def make_train_step(cfg, optimizer: optim.Optimizer, *,
     concatenate-then-combine result without the concatenation copy.  With
     a 0/1 vector every weight is exactly 1.0 or 0.0, and the weights and
     psum paths agree (dense archs).
+
+    stale_reuse=True (mask_agg="psum" only, the
+    ``core.controller.StaleReuseController`` policy): the step also
+    returns the DROPPED workers' mean gradient and their count as the
+    device pair ``metrics["stale"]`` (a second masked mean over the same
+    buffer, weighted by ``1 - mask``), and consumes ``batch["stale_g"]``
+    and ``batch["stale_w"]``, last step's dropped mean and its decayed
+    weight w (device tensors), folding them into this step's mean as
+    ``g = a (c / (c + w)) + b (w / (c + w))``, each factor cast to the
+    leaf's dtype as the JAX step casts it.  With w = 0 the factors are
+    exactly 1.0 and 0.0: the update is plain discard's, bit for bit.
+
+    compress_pod_grads=True: the aggregated gradient goes through int8
+    error-feedback compression (``optim.error_feedback_compress``) before
+    the update; the state carries the f32 residuals as ``"ef"``.
     """
     if mask_agg not in MASK_AGG_MODES:
         raise ValueError(f"unknown mask_agg {mask_agg!r} "
                          f"(want one of {MASK_AGG_MODES})")
-    if stale_reuse:
-        raise NotImplementedError(
-            "stale_reuse is not ported yet (ROADMAP A.9: the stale-gradient "
-            "fold comes with the rest of the straggler policies)")
-    if compress_pod_grads:
-        raise NotImplementedError(
-            "compress_pod_grads is not ported yet (ROADMAP A.9: "
-            "optim/compression.py comes with the cross-pod all-reduce)")
+    if stale_reuse and mask_agg != "psum":
+        raise ValueError(
+            "stale_reuse needs per-worker gradients: build the step with "
+            "mask_agg='psum' (the weights path never materializes a "
+            "dropped worker's gradient to buffer)")
     loss_fn = make_loss_fn(cfg, aux_coef)
     buffers: Dict[Any, ops.WorkerGrads] = {}
 
@@ -182,7 +199,21 @@ def make_train_step(cfg, optimizer: optim.Optimizer, *,
             buffers[key] = ops.WorkerGrads(params, W)
         return buffers[key]
 
-    def psum_grads_of(params, batch):
+    def fold_stale(grads, stale_g, stale_w, c):
+        """g = a (c / (c + w)) + b (w / (c + w)), as the JAX step."""
+        w = torch.as_tensor(stale_w, dtype=torch.float32).to(c.device)
+        denom = c + w
+        fa, fb = c / denom, w / denom
+        factors = {dt: (fa.to(dt), fb.to(dt))
+                   for dt in {a.dtype for a in tree.leaves(grads)}}
+
+        def one(a, b):
+            ca, cb = factors[a.dtype]
+            return a * ca + b.to(a.dtype) * cb
+
+        return tree.map(one, grads, stale_g)
+
+    def psum_grads_of(params, batch, stale_in=None):
         mask = batch["mask"]
         W = mask.shape[0]
         data = {k: v for k, v in batch.items() if k != "mask"}
@@ -208,25 +239,50 @@ def make_train_step(cfg, optimizer: optim.Optimizer, *,
         agg = collectives.masked_grad_mean(buf, mask)
         mask_dev = mask.to(buf.buf.device, non_blocking=True)
         c = torch.clamp(torch.sum(mask_dev), min=1.0)
+        stale = None
+        if stale_in is not None:
+            # the dropped workers' mean, buffered by the Trainer for the
+            # NEXT step (Dutta et al.); stale reuse is a 0/1-mask policy,
+            # so 1 - mask is the dropped bit array
+            stale = (collectives.masked_grad_mean(buf, 1.0 - mask),
+                     torch.sum(1.0 - mask_dev))
+            agg = fold_stale(agg, *stale_in, c)
 
         def masked_mean(xs):
             return torch.sum(torch.stack(xs) * mask_dev) / c
 
         return masked_mean(losses), {"ce": masked_mean(ces),
-                                     "aux": masked_mean(auxs)}, agg
+                                     "aux": masked_mean(auxs)}, agg, stale
 
     def train_step(state, batch):
         params = state["params"]
+        batch = dict(batch)
+        stale_in = (batch.pop("stale_g", None), batch.pop("stale_w", None))
+        if not stale_reuse:
+            stale_in = None        # a plain step ignores them, as JAX's
+        elif stale_in[0] is None:
+            raise ValueError(
+                "a stale_reuse step folds batch['stale_g'] with weight "
+                "batch['stale_w']: drive it with a StaleReuseController")
         batch = _device_batch(batch, tree.leaves(params)[0].device)
         if mask_agg == "psum":
-            loss, metrics, grads = psum_grads_of(params, batch)
+            loss, metrics, grads, stale = psum_grads_of(params, batch,
+                                                        stale_in)
         else:
             loss, metrics, flat = grads_of(params, batch)
             grads = tree.unflatten(params, flat)
+        if compress_pod_grads:
+            grads, ef = optim.error_feedback_compress(grads,
+                                                      state.get("ef"))
         ups, opt = optimizer.update(grads, state["opt"], params)
         params = optim.apply_updates(params, ups)
+        new_state = {"params": params, "opt": opt}
+        if compress_pod_grads:
+            new_state["ef"] = ef
         metrics = dict(metrics, loss=loss, gnorm=optim.global_norm(grads))
-        return {"params": params, "opt": opt}, metrics
+        if stale_reuse:
+            metrics["stale"] = stale
+        return new_state, metrics
 
     return train_step
 
@@ -255,7 +311,7 @@ def clock_to_loss(history, target: float, window: int = 3):
 
 @dataclass
 class Trainer:
-    """Cutoff-SGD trainer: controller + masked aggregation.
+    """Cutoff-SGD trainer: controller + masked aggregation + checkpoints.
 
     ``n_workers`` virtual workers share one device.  ``timer`` provides
     per-worker step times each iteration: a ``ClusterSim`` / ``TraceReplay``,
@@ -266,13 +322,27 @@ class Trainer:
     the card and returns) BEFORE the controller's ``observe`` runs, so the
     parameter server's bookkeeping overlaps the device's gradient work.
     Per-step losses stay device tensors and are fetched together every
-    ``metrics_every`` steps and at the end of :meth:`run`;
-    ``metrics_every=0`` drains only at the end.
+    ``metrics_every`` steps, at eval / verbose boundaries and at the end of
+    :meth:`run`; ``metrics_every=0`` drains only at boundaries.
+
+    Stale-gradient reuse: with a controller that carries ``stale_decay``
+    (``core.controller.StaleReuseController``) the loop keeps last step's
+    dropped-worker mean and count on the device and hands them to the
+    next step (a ``stale_reuse=True`` psum step) with the decayed weight
+    ``decay * count``, computed on the device.
+
+    Checkpoints (``ckpt_dir``): every ``ckpt_every`` steps an async save
+    (``checkpoint.store.AsyncCheckpointer``, ``keep`` newest) of the train
+    state, ``meta`` (step, clock), ``ctl`` (worker count, membership, the
+    controller's step and window) and, under stale reuse, ``stale`` (the
+    buffered dropped mean and count, so a restart folds what the
+    uninterrupted run would).  :meth:`restore_or_init` resumes from the
+    newest valid step.
 
     Elastic membership: when the timer exposes ``n_workers`` /
     ``active_ids``, the loop follows the worker set before each step
-    (:meth:`resize`).  ``ckpt_dir`` and ``obs`` raise until the checkpoint
-    store and telemetry are ported (ROADMAP A.9, A.14).
+    (:meth:`resize`).  ``obs`` raises until telemetry is ported (ROADMAP
+    A.14).
     """
     step_fn: Callable
     data: Any
@@ -281,8 +351,11 @@ class Trainer:
     n_workers: int = 8
     mask_agg: str = "weights"
     ckpt_dir: Optional[str] = None
+    ckpt_every: int = 50
+    keep: int = 3
     metrics_every: int = 10
     obs: Any = None
+    name: Optional[str] = None     # job/run label (telemetry's, A.14)
 
     state: Dict = None
     step: int = 0
@@ -290,22 +363,99 @@ class Trainer:
     members: Optional[np.ndarray] = None      # global worker ids
     history: list = field(default_factory=list)
     _pending_metrics: list = field(default_factory=list, repr=False)
+    # stale-reuse buffer: last step's (dropped-mean tree, count) on device
+    _stale: Any = field(default=None, repr=False)
 
     def __post_init__(self):
-        if self.ckpt_dir is not None:
-            raise NotImplementedError(
-                "checkpoints are not ported yet (ROADMAP A.9: "
-                "checkpoint/store.py and the 'ctl' group)")
         if self.obs is not None:
             raise NotImplementedError(
                 "telemetry is not ported yet (ROADMAP A.14: obs/*)")
 
+    @property
+    def _stale_decay(self):
+        return getattr(self.controller, "stale_decay", None)
+
     def restore_or_init(self, init_state_fn):
-        """Init cold (there is no checkpoint store yet)."""
+        """Restore from the newest VALID checkpoint, else init cold.
+
+        Steps are tried newest first: a corrupt or truncated step
+        (``store.CheckpointError``: bad checksum, missing group, torn
+        manifest) is skipped and the previous one is used.  The state is
+        restored onto the devices and into the dtypes of
+        ``init_state_fn()``'s tree; the controller (and, under stale
+        reuse, the stale buffer) from the SAME step.
+        """
         if self.members is None:
             self.members = np.arange(self.n_workers)
-        self.state = init_state_fn()
+        steps = (list(reversed(store.list_steps(self.ckpt_dir)))
+                 if self.ckpt_dir else [])
+        example = init_state_fn()
+        for step in steps:
+            try:
+                want = {"state": example,
+                        "meta": {"step": 0, "clock": 0.0}}
+                stale = (self._stale_decay is not None and "stale"
+                         in store.groups(self.ckpt_dir, step))
+                if stale:
+                    # restore makes new tensors shaped, typed and placed
+                    # like the example's leaves: the params describe g
+                    params = example["params"]
+                    want["stale"] = {
+                        "g": params,
+                        "count": torch.zeros(
+                            (), dtype=torch.float32,
+                            device=tree.leaves(params)[0].device)}
+                restored = store.restore(self.ckpt_dir, want, step=step)
+                self.state = restored["state"]
+                self.step = int(restored["meta"]["step"])
+                self.sim_clock = float(restored["meta"]["clock"])
+                if stale:
+                    self._stale = (restored["stale"]["g"],
+                                   restored["stale"]["count"])
+                self._restore_controller(step)
+                return self
+            except store.CheckpointError as e:
+                print(f"checkpoint step {step} unusable ({e}); "
+                      f"falling back to the previous step")
+        self.state = example
         return self
+
+    def _restore_controller(self, step):
+        """Warm-restore the straggler predictor from the ``ctl`` group: the
+        membership, the window (through ``seed_window``, which writes the
+        device ring in place) and the controller's step."""
+        grp = store.restore_group(self.ckpt_dir, "ctl", step=step)
+        if grp is None:
+            return
+        n_saved = int(grp["n"])
+        members = np.asarray(grp["members"], int)
+        if (n_saved != self.n_workers
+                or not np.array_equal(members, self.members)):
+            # the checkpoint was taken with a different worker set: remap
+            # onto the SAVED membership (survivor columns by global id)
+            old = {wid: col for col, wid in enumerate(self.members)}
+            col_map = np.array([old.get(wid, -1) for wid in members], int)
+            self.resize(n_saved, col_map=col_map, members=members)
+        ctl = self.controller
+        if "window" in grp and hasattr(ctl, "seed_window"):
+            ctl.seed_window(grp["window"])
+        if hasattr(ctl, "_step"):
+            ctl._step = int(grp["step"])
+
+    def _controller_ckpt(self) -> Dict[str, np.ndarray]:
+        members = (self.members if self.members is not None
+                   else np.arange(self.n_workers))
+        grp = {"n": np.int64(self.n_workers),
+               "members": np.asarray(members, np.int64),
+               "step": np.int64(getattr(self.controller, "_step",
+                                        self.step))}
+        if hasattr(self.controller, "window_array"):
+            try:
+                grp["window"] = np.asarray(self.controller.window_array(),
+                                           np.float64)
+            except ValueError:      # window still empty (cold controller)
+                pass
+        return grp
 
     # -- elastic membership --------------------------------------------
     def resize(self, n_workers: int, col_map=None, members=None):
@@ -364,10 +514,29 @@ class Trainer:
             rec["loss"] = loss
         self._pending_metrics.clear()
 
-    def run(self, n_steps: int):
-        if getattr(self.controller, "stale_decay", None) is not None:
-            raise NotImplementedError(
-                "stale-gradient reuse is not ported yet (ROADMAP A.9)")
+    def _stale_batch(self, batch, decay: float):
+        """Last step's dropped mean and its decayed weight into the batch
+        (zeros of weight 0 before the first step)."""
+        if self.mask_agg != "psum":
+            raise ValueError(
+                "StaleReuseController needs mask_agg='psum' (the weights "
+                "path never materializes a dropped worker's gradient to "
+                "buffer)")
+        if self._stale is None:
+            params = self.state["params"]
+            self._stale = (tree.map(torch.zeros_like, params),
+                           torch.zeros((), dtype=torch.float32,
+                                       device=tree.leaves(params)[0].device))
+        stale_g, stale_d = self._stale
+        batch["stale_g"] = stale_g
+        # decay per worker that contributed to the buffered mean, kept
+        # lazy on the device
+        batch["stale_w"] = decay * stale_d
+
+    def run(self, n_steps: int, *, eval_fn=None, eval_every: int = 0,
+            verbose: bool = False):
+        ckpt = (store.AsyncCheckpointer(self.ckpt_dir, self.keep)
+                if self.ckpt_dir else None)
         for _ in range(n_steps):
             self._sync_membership()
             n = self.n_workers
@@ -395,9 +564,20 @@ class Trainer:
             else:
                 batch["weights"] = collectives.example_weights(
                     contrib, batch["tokens"].shape[0])
+            decay = self._stale_decay
+            if decay is not None:
+                self._stale_batch(batch, decay)
             # launch the train step FIRST, then the PS's observe, so the
             # controller's work overlaps the device's
             self.state, metrics = self.step_fn(self.state, batch)
+            if decay is not None:
+                if "stale" not in metrics:
+                    raise ValueError(
+                        "StaleReuseController needs a step_fn built with "
+                        "make_train_step(..., mask_agg='psum', "
+                        "stale_reuse=True): this one returned no "
+                        "metrics['stale'] buffer")
+                self._stale = metrics.pop("stale")
             self.controller.observe(times, finished)
             self.step += 1
             self.sim_clock += iter_time
@@ -408,5 +588,24 @@ class Trainer:
             self._pending_metrics.append(rec)
             if self.metrics_every and self.step % self.metrics_every == 0:
                 self._drain_metrics()
+            if eval_fn and eval_every and self.step % eval_every == 0:
+                self._drain_metrics()
+                rec["eval"] = float(eval_fn(self.state))
+            if verbose and self.step % 20 == 0:
+                self._drain_metrics()
+                print(f"  step {self.step}: loss={rec['loss']:.4f} "
+                      f"c={c}/{n} t={iter_time:.3f}s "
+                      f"clock={self.sim_clock:.1f}s")
+            if ckpt and self.step % self.ckpt_every == 0:
+                groups = {"state": self.state,
+                          "meta": {"step": self.step,
+                                   "clock": self.sim_clock},
+                          "ctl": self._controller_ckpt()}
+                if decay is not None:
+                    groups["stale"] = {"g": self._stale[0],
+                                       "count": self._stale[1]}
+                ckpt.save(self.step, groups)
         self._drain_metrics()
+        if ckpt:
+            ckpt.wait()
         return self.history

@@ -17,9 +17,9 @@ after ``jax.tree.map(np.asarray, params)`` and returns the dicts that
   layer dicts, the sLSTM cell as its own ``slstm`` dict (``w``, ``r``,
   ``bias``).
 
-``state_from_jax`` carries a whole train state ``{"params", "opt"}``, and
-``runtime_model_from_jax`` a DMM ``RuntimeModel``'s params (dicts and
-lists of arrays, carried whole) with its ``norm_scale``.
+``state_from_jax`` carries a whole train state ``{"params", "opt"[,
+"ef"]}``, and ``runtime_model_from_jax`` a DMM ``RuntimeModel``'s params
+(dicts and lists of arrays, carried whole) with its ``norm_scale``.
 """
 from __future__ import annotations
 
@@ -32,7 +32,7 @@ from repro_torch.models.model import build_segments, layer_specs
 
 
 def _tensor(a, device):
-    if a.dtype.name == "bfloat16":   # ml_dtypes: torch cannot take it raw
+    if a.dtype.name == "bfloat16":   # an extension dtype torch cannot take
         t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(a))   # a writable copy
@@ -68,11 +68,13 @@ def from_jax(cfg, params_np, device=None):
 
 
 def state_from_jax(cfg, state_np, device=None):
-    """A JAX train state ``{"params", "opt"}`` (numpy leaves) -> the port's.
+    """A JAX train state ``{"params", "opt"[, "ef"]}`` (numpy leaves) -> the
+    port's.
 
     Every optimizer tree with the params' structure (Adam's ``m`` and ``v``,
     momentum's ``mu``) is carried like the params; ``step`` becomes a host
-    int, as the port's optimizers keep it.
+    int, as the port's optimizers keep it.  A compressed run's error-feedback
+    residuals ``ef`` (params-shaped, f32) are carried the same way.
     """
     opt = {}
     for name, val in state_np["opt"].items():
@@ -80,7 +82,10 @@ def state_from_jax(cfg, state_np, device=None):
             opt[name] = int(np.asarray(val))
         else:
             opt[name] = from_jax(cfg, val, device)
-    return {"params": from_jax(cfg, state_np["params"], device), "opt": opt}
+    out = {"params": from_jax(cfg, state_np["params"], device), "opt": opt}
+    if "ef" in state_np:
+        out["ef"] = from_jax(cfg, state_np["ef"], device)
+    return out
 
 
 def runtime_model_from_jax(params_np, norm_scale: float, *, lag: int = 20,

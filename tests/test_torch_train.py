@@ -198,12 +198,26 @@ def test_train_step_matches_jax(mask_agg, grad_accum, contrib):
 
 
 def test_train_step_refuses_unported_options():
+    """Stale reuse (psum) and compression are ported: both steps build and
+    run; stale reuse on the weights path and an unknown mask_agg still
+    raise ValueError, as the JAX step does."""
     _, tc = _cfgs(2)
     opt = toptim.adamw(LR)
-    with pytest.raises(NotImplementedError, match="A.9"):
-        TT.make_train_step(tc, opt, mask_agg="psum", stale_reuse=True)
-    with pytest.raises(NotImplementedError, match="A.9"):
-        TT.make_train_step(tc, opt, compress_pod_grads=True)
+    params = TM.init_model(tc, torch.Generator().manual_seed(0),
+                           device="cpu")
+    batch = SyntheticTokens(tc.vocab_size, 16, 4, seed=0).batch(0)
+    mask = np.asarray([1.0, 0.0], np.float32)
+    step = TT.make_train_step(tc, opt, mask_agg="psum", stale_reuse=True)
+    stale_g = tree.map(torch.zeros_like, params)
+    state, metrics = step({"params": params, "opt": opt.init(params)},
+                          dict(batch, mask=mask, stale_g=stale_g,
+                               stale_w=torch.tensor(0.0)))
+    assert float(metrics["stale"][1]) == 1.0
+    step = TT.make_train_step(tc, opt, compress_pod_grads=True)
+    state, _ = step(state, batch)
+    assert set(state) == {"params", "opt", "ef"}
+    with pytest.raises(ValueError, match="psum"):
+        TT.make_train_step(tc, opt, mask_agg="weights", stale_reuse=True)
     with pytest.raises(ValueError):
         TT.make_train_step(tc, opt, mask_agg="ring")
 
@@ -302,17 +316,28 @@ def test_trainer_follows_a_resizing_timer():
 
 
 def test_trainer_refuses_unported_features():
+    """Telemetry still raises naming A.14; checkpoints are ported (a
+    ``ckpt_dir`` with no checkpoint in it inits cold), and a controller
+    with ``stale_decay`` runs, refused only by the weights path."""
     kw = dict(step_fn=None, data=None, controller=tctl.FullSyncController(8))
-    with pytest.raises(NotImplementedError, match="A.9"):
-        TT.Trainer(ckpt_dir="ckpt", **kw)
     with pytest.raises(NotImplementedError, match="A.14"):
         TT.Trainer(obs=object(), **kw)
+    tr = TT.Trainer(ckpt_dir="no-such-dir", **kw)
+    tr.restore_or_init(lambda: {"cold": True})
+    assert tr.state == {"cold": True} and tr.step == 0
 
     class Stale(tctl.FullSyncController):
         stale_decay = 0.5
 
-    tr = TT.Trainer(**dict(kw, controller=Stale(8)))
-    with pytest.raises(NotImplementedError):
+    _, tc = _cfgs(2)
+    opt = toptim.adamw(LR)
+    params = TM.init_model(tc, torch.Generator().manual_seed(0),
+                           device="cpu")
+    tr = TT.Trainer(step_fn=TT.make_train_step(tc, opt),
+                    data=SyntheticTokens(tc.vocab_size, 8, 8, seed=0),
+                    controller=Stale(8))
+    tr.restore_or_init(lambda: {"params": params, "opt": opt.init(params)})
+    with pytest.raises(ValueError, match="psum"):
         tr.run(1)
 
 
