@@ -96,6 +96,33 @@ Phases, one JSON line each; any failure exits non-zero:
                  fractional contribution); int8 error-feedback
                  compression (the residual within half a quantization
                  step); launches asserted every step, peak memory
+  elastic_capture
+                 RuntimeModel(8, lag 10) fitted on the card on
+                 paper_cluster_158(0, 8).run(120), 150 steps; then a
+                 width-8 refit of 60 steps through _spawn_refit (on a
+                 thread and a stream of its own) while the main thread
+                 builds a CutoffController and makes 5 decisions (graph
+                 captures, then replays): no capture error, the cutoffs of
+                 the same decisions with no fit running, the loss
+                 trajectory of the same fit alone (within 2e-3 of its
+                 scale; bit-equality reported); both walls
+  train_elastic  the full-width psum setup (batch 24: divisible by 8 and
+                 6) through an 8 -> 6 -> 8 churn under ElasticController
+                 (k_samples 32, refit_steps 60, refit_fresh 3,
+                 fallback_warmup 2, refit_async) on that model:
+                 ChurnSim(paper_cluster_158(1, 8)) kills workers 6 and 7 at
+                 step 6 and restores them after a gap sized from the
+                 refit's measured wall; each step asserts the launches at
+                 its width (flash 24 x W), a finite loss and 1 <= c <= n
+                 and prints n, c, mode, whether a refit was in flight and
+                 wall ms; at each width the fallback decides, then the
+                 refitted DMM, before the next event; a checkpoint at step
+                 12 (width 6, ~4.94 GB under TMPDIR, checked free first)
+                 restored by a fresh trainer built at width 8: width 6,
+                 members 0..5, the window warm; 2 steps; masked_grad_agg
+                 timed on the trainer's own (6, N) buffer; refit seconds,
+                 memory by width, the first step after each resize, the
+                 median step with and without a refit in flight
   serve_xlstm    full-width xlstm-350m (bf16, seeded init) through
                  ServeEngine.generate: 4 prompts x 128 tokens, 32 greedy new
                  tokens; asserts 21 mlstm_chunk launches (the mLSTM
@@ -168,6 +195,7 @@ FLASH_CASES = [
     FlashCase("f32_s256", 2, 256, 256, 14, 2, 64, "float32", "simt"),
     FlashCase("hd128_s256", 2, 256, 256, 8, 2, 128, "bfloat16", "wgmma"),
     FlashCase("train_b2_s128", 2, 128, 128, 14, 2, 64, "bfloat16", "wgmma"),
+    FlashCase("train_b3_s128", 3, 128, 128, 14, 2, 64, "bfloat16", "wgmma"),
     FlashCase("decode_sk4096", 4, 1, 4096, 14, 2, 64, "bfloat16", "split_kv",
               cache=4096),
     FlashCase("decode_pos159", 4, 1, 160, 14, 2, 64, "bfloat16", "split_kv",
@@ -1592,6 +1620,412 @@ def phase_train_policies(torch, cfg, params_f32, rm):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# Elastic membership on the full-width psum setup: the ElasticController
+# with its async DMM refit through an 8 -> 6 -> 8 churn.  No kernel of its
+# own; the psum step's three kernels run at W = 6.
+# ---------------------------------------------------------------------------
+
+ELASTIC_BATCH = 24     # divisible by 8 and by 6 (train's 16 is not by 6)
+ELASTIC_LAG = 10       # launch/elastic.py's DMM
+REFIT_STEPS = 60
+REFIT_FRESH = 3
+KILL_AT = 6            # ChurnSim steps: kill (6, 7) here, restore later
+ELASTIC_CKPT = 12      # the mid-churn checkpoint (width 6)
+# the schedule's sizing: a width's first REFIT_FRESH steps feed the refit,
+# which may run REFIT_SLOWDOWN x its lone wall beside the trainer (they
+# share the interpreter lock: up to 5.3x in a run on an H100 80GB HBM3 at
+# 700 W), over steps of at least STEP_S_MIN seconds (medians of 0.84-2.11
+# s there); then 2 DMM steps.  Both bounds sit outside what was measured.
+REFIT_SLOWDOWN = 6.0
+STEP_S_MIN = 0.7
+
+
+def _elastic_capture(torch, rm, trace):
+    """A width-8 refit of REFIT_STEPS steps on the card through
+    ``_spawn_refit`` (``ElasticController._fit_model``: a stream of its
+    own) while the main thread builds a CutoffController on ``rm`` and
+    makes 5 decisions (2 graph captures, then replays).  Against the
+    same decisions with no fit running (identical cutoffs) and the same
+    fit alone (its loss trajectory)."""
+    from repro_torch.cluster.simulator import paper_cluster_158
+    from repro_torch.core.controller import (CutoffController,
+                                             ElasticController,
+                                             _poll_refit_task, _spawn_refit)
+    from repro_torch.core.runtime_model.api import RuntimeModel
+
+    ectl = ElasticController(rm, k_samples=32, seed=0,
+                             refit_steps=REFIT_STEPS)
+    losses = []
+    fit = RuntimeModel.fit
+
+    def recorded_fit(self, *args, **kw):
+        out = fit(self, *args, **kw)
+        losses.append(out)
+        return out
+
+    def decide():
+        t0 = time.perf_counter()
+        ctl = CutoffController(rm, k_samples=32, seed=0)
+        ctl.seed_window(trace)
+        sim = paper_cluster_158(seed=5, n_workers=8)
+        cutoffs = []
+        for _ in range(5):
+            c = ctl.predict_cutoff()
+            cutoffs.append(c)
+            times = sim.step()
+            mask = np.zeros(8, bool)
+            mask[np.argsort(times)[:c]] = True
+            ctl.observe(times, mask)
+        ctl._wait()
+        return {"cutoffs": cutoffs, "graphs": len(ctl.graphs),
+                "replays": ctl.replays, "s": time.perf_counter() - t0}
+
+    def refit():
+        return _spawn_refit(lambda: ectl._fit_model(trace, 8, 1), 0)
+
+    def finish(task):
+        task[0].join(timeout=600)
+        check(not task[0].is_alive(), "refit thread still running")
+        done, model, err = _poll_refit_task(task, 0, 8)
+        if err is not None:
+            raise RuntimeError(f"refit raised: {err!r}") from err
+        check(done and model is not None, "refit gave no model")
+        return model
+
+    RuntimeModel.fit = recorded_fit
+    try:
+        alone = decide()
+        t0 = time.perf_counter()
+        finish(refit())
+        refit_alone_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        task = refit()
+        time.sleep(0.3)             # the fit is inside its step loop
+        busy = decide()
+        alive = task[0].is_alive()
+        finish(task)
+        refit_busy_s = time.perf_counter() - t0
+    finally:
+        RuntimeModel.fit = fit
+    a, b = (np.asarray(x) for x in losses)
+    scale = float(np.abs(a).max())
+    fit_err = float(np.abs(a - b).max())
+    out = {"refit_steps": REFIT_STEPS, "refit_alone_s": refit_alone_s,
+           "refit_beside_captures_s": refit_busy_s,
+           "decisions_alone_s": alone["s"],
+           "decisions_beside_refit_s": busy["s"],
+           "cutoffs": busy["cutoffs"], "cutoffs_no_fit": alone["cutoffs"],
+           "graphs": busy["graphs"], "replays": busy["replays"],
+           "fit_alive_after_decisions": alive,
+           "fit_losses_bit_equal": bool(np.array_equal(a, b)),
+           "fit_loss_max_abs_err": fit_err, "fit_loss_tol": FIT_TOL * scale,
+           "fit_loss_first_last": [a[0], a[-1]]}
+    emit("elastic_capture", **out)
+    check(alive, "the refit ended before the decisions did: nothing was "
+          "captured beside it")
+    check(busy["cutoffs"] == alone["cutoffs"], f"cutoffs beside a refit "
+          f"{busy['cutoffs']}, alone {alone['cutoffs']}")
+    check(busy["graphs"] == alone["graphs"] >= 2, f"graphs {busy['graphs']} "
+          f"beside the refit, {alone['graphs']} alone")
+    check(fit_err <= FIT_TOL * scale, f"the refit beside the captures "
+          f"drifted from the lone fit by {fit_err} > {FIT_TOL} x {scale}")
+    return out
+
+
+def phase_train_elastic(torch, cfg, params_f32):
+    """Full-width qwen2-0.5b psum training (bf16, seq 128, batch 24, fused
+    AdamW) through an 8 -> 6 -> 8 churn under ElasticController(rm,
+    k_samples 32, refit_steps 60, refit_fresh 3, fallback_warmup 2,
+    refit_async): rm is RuntimeModel(8, lag 10) fitted on the card on
+    paper_cluster_158(0, 8).run(120) for 150 steps (launch/elastic.py's
+    fit), seeded with the trace's last 40 rows; the timer
+    ChurnSim(paper_cluster_158(1, 8)) kills workers 6 and 7 at step 6 and
+    restores them after a gap sized from the refit's measured wall.
+
+    First the concurrency check (``_elastic_capture``).  Then every step
+    asserts the launches at its width, a finite loss and 1 <= c <= n; the
+    widths run 8, 6, 8, and at each new width the fallback decides first,
+    then the refitted DMM, before the next event.  A checkpoint at step 12
+    (width 6); once the first trainer is freed, a fresh trainer built at
+    width 8 restores it: width 6, members 0..5, the window allclose to the
+    saved one; 2 steps.  One masked_grad_agg call timed on the trainer's
+    own (6, N) buffer."""
+    import shutil
+    import tempfile
+
+    from repro_torch import optim, tree
+    from repro_torch.checkpoint import store
+    from repro_torch.cluster.simulator import (ChurnEvent, ChurnSim,
+                                               paper_cluster_158)
+    from repro_torch.core.controller import ElasticController
+    from repro_torch.core.runtime_model.api import RuntimeModel
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels.ref import reference_masked_agg
+    from repro_torch.launch.train import Trainer, make_train_step
+
+    W, S, B, L = 8, 128, ELASTIC_BATCH, cfg.n_layers
+    t_phase = time.perf_counter()
+    trace = paper_cluster_158(0, n_workers=W).run(120)
+    rm = RuntimeModel(W, lag=ELASTIC_LAG, device="cuda").init(0)
+    t0 = time.perf_counter()
+    fit = rm.fit(trace, steps=150, batch=8, seed=0)
+    fit_s = time.perf_counter() - t0
+    capture = _elastic_capture(torch, rm, trace)
+
+    gap = REFIT_FRESH + math.ceil(REFIT_SLOWDOWN * capture["refit_alone_s"]
+                                  / STEP_S_MIN) + 2
+    gap = max(gap, ELASTIC_CKPT - KILL_AT + 1)
+    restore_at, n_steps = KILL_AT + gap, KILL_AT + 2 * gap
+    opt = optim.adamw(optim.cosine_schedule(3e-4, 2, 20), fused=True)
+    out = {"fit_seconds": fit_s, "fit_loss_first_last": [fit[0], fit[-1]],
+           "schedule": {"kill": KILL_AT, "restore": restore_at,
+                        "steps": n_steps, "checkpoint": ELASTIC_CKPT}}
+
+    def churn(steps_done=0):
+        sim = ChurnSim(paper_cluster_158(1, n_workers=W),
+                       [ChurnEvent(step=KILL_AT, kill=(6, 7)),
+                        ChurnEvent(step=restore_at, restore=(6, 7))])
+        for _ in range(steps_done):
+            sim.step()
+        return sim
+
+    def elastic():
+        ctl = ElasticController(rm, k_samples=32, seed=0,
+                                refit_steps=REFIT_STEPS,
+                                refit_fresh=REFIT_FRESH, fallback_warmup=2,
+                                refit_async=True)
+        ctl.seed_window(trace[-40:])
+        return ctl
+
+    def trainer(ctl, sim, **kw):
+        params = cast(params_f32, "cuda", torch.bfloat16)
+        tr = Trainer(step_fn=make_train_step(cfg, opt, mask_agg="psum"),
+                     data=SyntheticTokens(vocab_size=cfg.vocab_size,
+                                          seq_len=S, global_batch=B,
+                                          seed=SEED),
+                     controller=ctl, timer=sim, n_workers=W,
+                     mask_agg="psum", metrics_every=1, **kw)
+        return tr.restore_or_init(
+            lambda: {"params": params, "opt": opt.init(params)})
+
+    totals = {}
+
+    def one_step(tr, phase, ctl, extra=None):
+        job = ctl._refit_job
+        alive0 = job is not None and job[0].is_alive()
+        build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        rec = tr.run(1)[-1]        # drains the loss: ends in a device sync
+        wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        n, c = rec["n"], rec["c"]
+        want = {"flash_attention": L * n, "masked_grad_agg": 1,
+                "fused_adam": 1}
+        check(launches == want, f"{phase} step {rec['step']} (n {n}): "
+              f"launches {launches}, want {want}")
+        check(bool(np.isfinite(rec["loss"])),
+              f"{phase} step {rec['step']}: loss {rec['loss']}")
+        check(1 <= c <= n, f"{phase} step {rec['step']}: c {c} of {n}")
+        job = ctl._refit_job
+        r = {"step": rec["step"], "n": n, "c": c, "mode": modes[-1],
+             "refit_in_flight": [alive0,
+                                 job is not None and job[0].is_alive()],
+             "graphs": len(ctl._dmm.graphs) if ctl._dmm is not None else 0,
+             "wall_ms": wall * 1e3, "loss": rec["loss"],
+             "clock": rec["clock"], "launches": launches,
+             "max_memory_allocated": torch.cuda.max_memory_allocated(),
+             "memory_reserved": torch.cuda.memory_reserved(), **(extra or {})}
+        emit(phase, **r)
+        return r
+
+    # instrumentation on this instance only: the mode of each decision,
+    # the refits' fit time on their thread, and when each install happened
+    modes, refits = [], []
+    ctl = elastic()
+    predict, fit_model, install = (ctl.predict_cutoff, ctl._fit_model,
+                                   ctl._install_dmm)
+
+    def traced_predict():
+        c = predict()
+        modes.append(ctl.mode)
+        return c
+
+    def timed_fit(rows, n, seed):
+        r = {"n": n, "seed": seed, "rows": len(rows),
+             "spawned": time.perf_counter(), "spawn_step": tr.step}
+        refits.append(r)
+        model = fit_model(rows, n, seed)
+        r["fit_s"] = time.perf_counter() - r["spawned"]
+        return model
+
+    def timed_install(model):
+        install(model)
+        r = refits[-1]
+        r["spawn_to_install_s"] = time.perf_counter() - r["spawned"]
+        r["install_step"] = tr.step + 1
+
+    ctl.predict_cutoff, ctl._fit_model = traced_predict, timed_fit
+    ctl._install_dmm = timed_install
+    bufs = []
+    aggregate = ops.WorkerGrads.aggregate
+
+    def kept_aggregate(self, mask):
+        bufs[:] = [self]           # the psum step's own (W, N) buffer
+        return aggregate(self, mask)
+
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    steps, mem, ckpt_s = [], {}, {}
+    try:
+        n_params = sum(x.numel() for x in tree.leaves(params_f32))
+        need = n_params * (2 + 4 + 4)       # bf16 p, f32 m and v
+        free = shutil.disk_usage(ckpt_dir).free
+        check(free >= CKPT_SLACK * need, f"{ckpt_dir}: {free} bytes free, "
+              f"the checkpoint needs {need} (x {CKPT_SLACK})")
+        tr = trainer(ctl, churn(), ckpt_dir=ckpt_dir,
+                     ckpt_every=ELASTIC_CKPT)
+        write, snapshot = store.save, store.AsyncCheckpointer.save
+
+        def timed_write(*args, **kw):
+            t0 = time.perf_counter()
+            path = write(*args, **kw)
+            ckpt_s["write"] = time.perf_counter() - t0
+            return path
+
+        def timed_snapshot(self, *args, **kw):
+            t0 = time.perf_counter()
+            snapshot(self, *args, **kw)
+            ckpt_s["snapshot"] = time.perf_counter() - t0
+
+        torch.cuda.reset_peak_memory_stats()
+        agg = None
+        for i in range(n_steps):
+            if i in (KILL_AT, restore_at):
+                torch.cuda.reset_peak_memory_stats()
+            if i + 1 == ELASTIC_CKPT:
+                store.save = timed_write
+                store.AsyncCheckpointer.save = timed_snapshot
+            if i == restore_at - 1:
+                # keep the buffer of the last width-6 step only: held
+                # across a resize, it would sit beside the next width's
+                ops.WorkerGrads.aggregate = kept_aggregate
+            try:
+                steps.append(one_step(tr, "train_elastic", ctl))
+            finally:
+                store.save, store.AsyncCheckpointer.save = write, snapshot
+                ops.WorkerGrads.aggregate = aggregate
+            if tr.step == ELASTIC_CKPT:
+                tr.ckpt_dir = None          # one checkpoint, at width 6
+            n = steps[-1]["n"]
+            m = mem.setdefault(str(n) if i < restore_at else f"{n}_again",
+                               {})
+            m["max_memory_allocated"] = steps[-1]["max_memory_allocated"]
+            m["memory_reserved"] = max(m.get("memory_reserved", 0),
+                                       steps[-1]["memory_reserved"])
+            if i == restore_at - 1:
+                # the trainer's own (6, N) buffer, the DMM back (no fit
+                # thread beside the timing's graph capture)
+                check(ctl._refit_job is None and n == 6, "a refit is still "
+                      "in flight at the end of width 6")
+                g = bufs[0].buf
+                mask = _agg_masks(torch, g.shape[0], torch.Generator(
+                    device="cuda").manual_seed(SEED))["bits"]
+                got = ops.masked_aggregate(g, mask)
+                want = reference_masked_agg(g, mask.reshape(-1, 1))[0]
+                err = (got - want).abs().max().item()
+                ex = _allclose_excess(torch, got, want, AGG_TOL["float32"],
+                                      AGG_TOL["float32"]).item()
+                del got, want
+                agg = {"W": g.shape[0], "N": g.shape[1], "max_abs_err": err,
+                       **_agg_times(torch, torch.cuda.Stream(), g, mask, 5)}
+                emit("train_elastic_masked_grad_agg", **agg)
+                check(ex <= AGG_TOL["float32"], f"masked_grad_agg on the "
+                      f"(6, N) buffer: off by {ex}")
+                del g, mask, bufs[:]
+        saved = store.restore_group(ckpt_dir, "ctl", step=ELASTIC_CKPT)
+        step_dir = Path(ckpt_dir) / f"step_{ELASTIC_CKPT:010d}"
+        ckpt_bytes = {p.name: p.stat().st_size for p in step_dir.iterdir()}
+        out["checkpoint"] = dict(ckpt_s, bytes=ckpt_bytes,
+                                 total_bytes=sum(ckpt_bytes.values()),
+                                 free_bytes=free)
+        del tr, ctl
+        torch.cuda.empty_cache()
+
+        # a fresh trainer at width 8 restores the mid-churn checkpoint
+        ctl2 = elastic()
+        modes.clear()
+        predict2 = ctl2.predict_cutoff
+
+        def traced_predict2():
+            c = predict2()
+            modes.append(ctl2.mode)
+            return c
+
+        ctl2.predict_cutoff = traced_predict2
+        t0 = time.perf_counter()
+        tr = trainer(ctl2, churn(ELASTIC_CKPT), ckpt_dir=ckpt_dir)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        warm = bool(np.allclose(ctl2.window_array(), saved["window"]))
+        out["restart"] = {"restore_s": restore_s, "step": tr.step,
+                          "n": tr.n_workers, "members": tr.members.tolist(),
+                          "window_allclose": warm, "mode": ctl2.mode}
+        check(tr.step == ELASTIC_CKPT and tr.n_workers == 6
+              and tr.members.tolist() == list(range(6)) and warm,
+              f"restart: {out['restart']}")
+        tr.ckpt_dir = None
+        resumed = [one_step(tr, "train_elastic_resumed", ctl2)
+                   for _ in range(2)]
+        out["restart"]["c"] = [r["c"] for r in resumed]
+        out["restart"]["wall_ms"] = [r["wall_ms"] for r in resumed]
+        del tr, ctl2
+        torch.cuda.empty_cache()
+    finally:
+        ops.WorkerGrads.aggregate = aggregate
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    # the summary, printed before it is checked
+    widths = [s["n"] for s in steps]
+    runs = [(s["n"], s["mode"]) for i, s in enumerate(steps)
+            if i == 0 or (steps[i - 1]["n"], steps[i - 1]["mode"])
+            != (s["n"], s["mode"])]
+    first = {f"{steps[i]['n']}@{steps[i]['step']}": steps[i]["wall_ms"]
+             for i in (KILL_AT, restore_at)}
+    skip = {0, KILL_AT, restore_at, ELASTIC_CKPT - 1}
+    skip |= {i for i in range(1, len(steps))
+             if steps[i]["graphs"] != steps[i - 1]["graphs"]}
+    medians = {}
+    for n in (8, 6):
+        kept = [s for i, s in enumerate(steps) if i not in skip
+                and s["n"] == n]
+        busy = [s["wall_ms"] for s in kept if all(s["refit_in_flight"])]
+        idle = [s["wall_ms"] for s in kept if not any(s["refit_in_flight"])]
+        medians[str(n)] = {
+            "refit_in_flight": float(np.median(busy)) if busy else None,
+            "no_refit": float(np.median(idle)) if idle else None,
+            "steps": [len(busy), len(idle)]}
+    for r in refits:
+        r.pop("spawned")
+    out.update(widths=widths, mode_runs=runs, refits=refits,
+               first_step_after_resize_ms=first,
+               median_wall_ms_by_width=medians,
+               memory_by_width=mem, masked_grad_agg_w6=agg,
+               launches=totals, seconds=time.perf_counter() - t_phase)
+    emit("train_elastic_summary", **out)
+    check([w for i, w in enumerate(widths) if i == 0 or widths[i - 1] != w]
+          == [8, 6, 8], f"widths {widths}")
+    check(runs == [(8, "dmm"), (6, "fallback"), (6, "dmm"), (8, "fallback"),
+                   (8, "dmm")], f"mode runs {runs}: a refit did not land "
+          f"in time (refits {refits}; steps of {capture['refit_alone_s']:.2f}"
+          f" s alone)")
+    check(len(refits) == 2 and all("spawn_to_install_s" in r
+                                    for r in refits), f"refits {refits}")
+    return totals, agg
+
+
 def _mlstm_inputs(torch, B, S, H, hd, dtname, gates, gen):
     """q/k/v in ``dtname`` and f32 log gates, as the mLSTM block makes
     them: g = log_sigmoid(forget logits), i = the input logits."""
@@ -1872,6 +2306,9 @@ def main() -> int:
     policy_launches = timed(sec, "train_policies", phase_train_policies,
                             torch, cfg, params_f32, rm)
     del rm
+    elastic_launches, agg_w6 = timed(sec, "train_elastic",
+                                     phase_train_elastic, torch, cfg,
+                                     params_f32)
     del params_f32
     xcfg, xparams = timed(sec, "init_xlstm", init_xlstm, torch)
     xlstm_launches = timed(sec, "serve_xlstm", phase_serve_xlstm, torch,
@@ -1886,6 +2323,7 @@ def main() -> int:
                    "train_psum_5_steps": train_launches.get(name, 0),
                    "train_dmm": dmm_launches.get(name, 0),
                    "train_policies": policy_launches.get(name, 0),
+                   "train_elastic": elastic_launches.get(name, 0),
                    "serve_xlstm": xlstm_launches.get(name, 0)}
         return sum(by_path.values()), by_path
 
@@ -1910,7 +2348,9 @@ def main() -> int:
             ("flash_attention", "src/repro/kernels/flash_attention.py:93",
              flash_err, head, HEADLINE_CASE, flash_extra),
             ("masked_grad_agg", "src/repro/kernels/masked_grad_agg.py:32",
-             agg_err, agg_head, AGG_HEADLINE, {}),
+             agg_err, agg_head, AGG_HEADLINE,
+             {f"w6_{k}": agg_w6[k] for k in ("ms", "plain_ms", "library_ms",
+                                              "bound_ms", "max_abs_err")}),
             ("fused_adam", "src/repro/kernels/fused_adam.py:40", adam_err,
              adam_head, ADAM_HEADLINE, {}),
             ("mlstm_chunk", "src/repro/kernels/mlstm_chunk.py:87",

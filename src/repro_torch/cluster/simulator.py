@@ -1,9 +1,12 @@
 """Cluster run-time simulator (a copy of ``repro.cluster.simulator``).
 
 The port keeps its own copy of the numpy-only ``ClusterSim``, the
-``microbatch_progress`` query and the presets, so that it never imports the
-JAX package; the same seed gives the same runtimes.  The churn, overlay
-and multi-tenant layers are not copied yet.
+``microbatch_progress`` query, the churn layer (``ChurnEvent``,
+``ChurnSim``, ``resize_schedule``) and the presets, so that it never
+imports the JAX package; the same seed gives the same runtimes and the
+same membership schedule.  The fault overlay (``OverlaySim``) comes with
+the control plane (ROADMAP A.13), the multi-tenant partitioning
+(``PartitionedSim``) with the parameter server (A.12).
 
 Generates joint worker runtimes with the phenomenology the paper observes on
 its real clusters (Fig. 2): machine-correlated slowdowns (workers share
@@ -16,7 +19,7 @@ the CPU-only container uses for end-to-end runs and benchmarks.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -122,6 +125,100 @@ def microbatch_progress(times, t: float, n_micro: int) -> np.ndarray:
     frac = np.clip(t / np.maximum(times, 1e-300), 0.0, 1.0)
     # the 1e-9 guard keeps an exact k/n_micro ratio from flooring to k-1
     return np.floor(frac * n_micro + 1e-9) / float(n_micro)
+
+
+# ---------------------------------------------------------------------------
+# Churn layer: elastic worker membership on top of any runtime source.
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class ChurnEvent:
+    """One membership change, keyed on the base simulator's step count.
+
+    ``kill`` / ``restore`` name GLOBAL worker ids (columns of the base
+    sim); ``resize`` is a convenience target width — extra kills come off
+    the highest active ids, restores come back lowest-id first.  The event
+    fires BEFORE the runtimes of iteration ``step`` are drawn, so the
+    step at which it fires already runs at the new width.
+    """
+    step: int
+    kill: Tuple[int, ...] = ()
+    restore: Tuple[int, ...] = ()
+    resize: Optional[int] = None
+
+
+class ChurnSim:
+    """Membership schedule wrapped around a ClusterSim (or TraceReplay).
+
+    The base simulator keeps generating FULL-width joint runtimes — the
+    cluster's phenomenology (node regimes, AR load) is independent of which
+    workers currently hold a lease — and ``step()`` returns only the active
+    columns.  ``n_workers`` / ``active_ids`` reflect the membership of the
+    NEXT ``step()`` (pending events are applied eagerly), so a caller can
+    resize its plumbing before drawing the runtimes of the resized step.
+
+    Survivor columns are therefore column-exact across a resize: worker j's
+    runtime series is the same whether or not its neighbours were killed.
+    """
+
+    def __init__(self, base, events: List[ChurnEvent]):
+        self.base = base
+        self.events = sorted(events, key=lambda e: e.step)
+        self._active = np.ones(base.n_workers, bool)
+        self._ei = 0
+        self._apply_pending()
+
+    def _apply_pending(self):
+        while (self._ei < len(self.events)
+               and self.events[self._ei].step <= self.base.t):
+            ev = self.events[self._ei]
+            self._ei += 1
+            if ev.kill:
+                self._active[list(ev.kill)] = False
+            if ev.restore:
+                self._active[list(ev.restore)] = True
+            if ev.resize is not None:
+                n = int(ev.resize)
+                if not 1 <= n <= self.base.n_workers:
+                    raise ValueError(f"resize target {n} outside "
+                                     f"[1, {self.base.n_workers}]")
+                ids = np.flatnonzero(self._active)
+                if n < ids.size:                  # kill highest active ids
+                    self._active[ids[n:]] = False
+                elif n > ids.size:                # restore lowest dead ids
+                    dead = np.flatnonzero(~self._active)
+                    self._active[dead[: n - ids.size]] = True
+
+    @property
+    def n_workers(self) -> int:
+        self._apply_pending()
+        return int(self._active.sum())
+
+    @property
+    def active_ids(self) -> np.ndarray:
+        """Global worker ids of the active set, ascending."""
+        self._apply_pending()
+        return np.flatnonzero(self._active)
+
+    @property
+    def t(self) -> int:
+        return self.base.t
+
+    def step(self) -> np.ndarray:
+        """Joint runtimes of the CURRENT active set ((n_active,))."""
+        self._apply_pending()
+        active = self._active.copy()
+        return self.base.step()[active]
+
+    def run(self, n_steps: int) -> List[np.ndarray]:
+        """Rows may change width across events, so this returns a list."""
+        return [self.step() for _ in range(n_steps)]
+
+
+def resize_schedule(base, plan: List[Tuple[int, int]]) -> ChurnSim:
+    """ChurnSim from a [(step, n_workers), ...] width plan."""
+    return ChurnSim(base, [ChurnEvent(step=s, resize=n) for s, n in plan])
 
 
 # ---------------------------------------------------------------------------

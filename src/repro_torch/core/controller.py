@@ -27,13 +27,18 @@ elastic membership.  The port of ``repro.core.controller``:
   * AnytimeController and StaleReuseController: the straggler-policy
     wrappers, which keep any controller above for the cutoff and change
     only what a dropped worker contributes.
-
-The elastic controller is not ported yet (ROADMAP A.6).
+  * ElasticController: the DMM controller for a worker set that changes
+    mid-run.  Across a resize it remaps its window, decides through a
+    warm Elfving fallback, refits the DMM at the new width (on a worker
+    thread with ``refit_async=True``: on the card the fit runs on a
+    stream of its own) and swaps the refitted DMM back in.
+    ``_spawn_refit`` / ``_poll_refit_task`` are the refit task's shape.
 """
 from __future__ import annotations
 
 import contextlib
 import math
+import threading
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -526,12 +531,23 @@ class CutoffController:
         stream.  It first runs once, eagerly, on a copy of the state (the
         libraries' lazy set-up must not happen inside the capture, and the
         warm-up must not step the real ring).  A capture that fails
-        raises."""
+        raises.
+
+        The capture is thread-local: a call that is unsafe during a
+        capture (a sync, a blocking copy, a cudaMalloc) still breaks it
+        when this thread makes it, but not when another thread does.  An
+        ``ElasticController`` refit may be fitting a model on a worker
+        thread, on a stream of its own, while the trainer's thread
+        captures a new controller's graphs; in the default global mode
+        such a call from the fit (an allocation, a pageable index copy, its
+        final fetch) may
+        invalidate the capture and fail the fit."""
         with self._on_stream():
             run({k: v.clone() for k, v in self._st.items()})
         self._wait()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=self._stream):
+        with torch.cuda.graph(graph, stream=self._stream,
+                              capture_error_mode="thread_local"):
             run(self._st)
         return graph
 
@@ -773,3 +789,338 @@ class CutoffController:
             imputed = censoring.impute_censored(t, mask, mu, std,
                                                 cutoff_time, u=u)
         self._window.append(imputed)
+
+
+# ---------------------------------------------------------------------------
+# Elastic membership: DMM controller + analytic fallback + refit.
+# ---------------------------------------------------------------------------
+
+
+class RefitError(RuntimeError):
+    """An async DMM refit raised, and the retry budget is spent.
+
+    Raised from the POLL (``predict_cutoff`` / ``observe``), not lost on
+    the worker thread: the owner keeps serving decisions through its
+    fallback while one seeded retry is in flight, and only escalates
+    when the retry fails too.
+    """
+
+
+def _spawn_refit(fit_fn, gen: int) -> tuple:
+    """Start a DMM refit on a daemon thread.
+
+    Returns the ``(thread, result_box, generation)`` refit-task triple:
+    the thread fills ``result_box["model"]`` when the fit finishes, or
+    ``result_box["error"]`` when it RAISES (captured, never swallowed:
+    :func:`_poll_refit_task` hands it back to the owner's poll).  The
+    generation tag (the owner's resize count at spawn time) lets the poll
+    discard results that a later resize made stale.  Dropping the triple
+    abandons the fit without ever blocking a decision on it.
+    """
+    box: dict = {}
+
+    def work():
+        try:
+            box["model"] = fit_fn()
+        except BaseException as e:         # surfaced by the poll
+            box["error"] = e
+
+    thread = threading.Thread(target=work, daemon=True)
+    task = (thread, box, gen)
+    thread.start()
+    return task
+
+
+def _poll_refit_task(task: tuple, gen: int, width: int):
+    """Non-blocking poll of a :func:`_spawn_refit` triple.
+
+    Returns ``(done, model, error)``: ``(False, None, None)`` while the
+    fit thread is still running; ``(True, model, None)`` once it finished
+    AND the result is still current (generation matches and the fitted
+    width is the owner's width); ``(True, None, exc)`` when the fit RAISED
+    and the failure is still current; ``(True, None, None)`` for a
+    finished-but-stale fit, which is discarded, never installed.
+    """
+    thread, box, task_gen = task
+    if thread.is_alive():
+        return False, None, None
+    thread.join()
+    if task_gen != gen:
+        return True, None, None
+    error = box.get("error")
+    if error is not None:
+        return True, None, error
+    model = box.get("model")
+    if model is None or model.n_workers != width:
+        return True, None, None
+    return True, model, None
+
+
+class ElasticController:
+    """Membership-elastic cutoff controller (DMM + Elfving fallback + refit).
+
+    While the cluster shape matches the fitted :class:`RuntimeModel` every
+    decision is the DMM :class:`CutoffController`'s.  Across a
+    :meth:`resize` it:
+
+      1. remaps its imputed trace onto the new worker set (survivors
+         column-exact, new workers seeded from the cluster mean:
+         :func:`remap_columns`);
+      2. falls back to :class:`ElfvingController`, warm-seeded from the
+         remapped trace;
+      3. refits the DMM at the new width once ``refit_fresh`` post-resize
+         observations have arrived (synchronously by default;
+         ``refit_async=True`` fits on a worker thread and swaps the DMM
+         back in when the poll finds it done), then decides through the
+         DMM again, its window seeded from the trace.
+
+    The refit's model lives on the device of the model given here.  On
+    the card the fit runs on a stream of its own and synchronizes it
+    before the thread hands the model over, so its params are complete
+    when the trainer's thread installs it (and captures the new
+    controller's graphs: ``CutoffController._capture`` is thread-local
+    for that reason).  A DMM controller is dropped only after its
+    decision in flight has finished: its graph replays on its own stream
+    into pinned memory, and its graphs' memory goes with it.
+
+    The rolling imputed trace (plain imputation at the observed cutoff
+    time) is the refit's training data; ``window_array`` / ``seed_window``
+    expose its lag-window tail for checkpoints.
+    """
+
+    def __init__(self, model: RuntimeModel, *, k_samples: int = 64,
+                 min_frac: float = 0.5, seed: int = 0,
+                 backend: str = "device", history: int = 512,
+                 refit_steps: int = 150, refit_batch: int = 8,
+                 refit_fresh: int = 4, refit_async: bool = False,
+                 fallback_warmup: int = 3, refit_retries: int = 1):
+        self.k_samples = k_samples
+        self.min_frac = min_frac
+        self.seed = seed
+        self.backend = backend
+        self.history = history
+        self.refit_steps = refit_steps
+        self.refit_batch = refit_batch
+        self.refit_fresh = refit_fresh
+        self.refit_async = refit_async
+        self.fallback_warmup = fallback_warmup
+        self.refit_retries = refit_retries
+        self._refit_failures = 0          # consecutive failed async fits
+        # architecture template for refits (widths change, shapes don't)
+        self._lag = model.lag
+        self._z_dim = model.z_dim
+        self._hidden = model.hidden
+        self._device = model.device
+        self._n = model.n_workers
+        self._trace: list = []            # imputed full rows, rolling
+        self._fresh = 0                   # post-resize observations
+        self._resize_count = 0
+        # async refit in flight: (thread, result_box, resize generation)
+        self._refit_job: Optional[tuple] = None
+        self.fallback_steps = 0           # observes served by the fallback
+        self._dmm: Optional[CutoffController] = None
+        self._fallback = ElfvingController(self._n,
+                                           warmup=fallback_warmup,
+                                           min_frac=min_frac)
+        self._install_dmm(model)
+
+    # -- bookkeeping ----------------------------------------------------
+    @property
+    def n(self) -> int:
+        return self._n
+
+    @property
+    def mode(self) -> str:
+        """"dmm" when the fitted controller decides, "fallback" while a
+        resize awaits its refit."""
+        return "dmm" if self._dmm is not None else "fallback"
+
+    @property
+    def warmed_up(self) -> bool:
+        return len(self._trace) >= self._lag + 1
+
+    def _drop_dmm(self):
+        if self._dmm is not None:
+            self._dmm._wait()       # its decision in flight, on its stream
+            self._dmm = None
+
+    def _install_dmm(self, model: RuntimeModel):
+        if model.n_workers != self._n:
+            raise ValueError(f"a RuntimeModel of width {model.n_workers} "
+                             f"for a controller of width {self._n}")
+        self._drop_dmm()
+        ctl = CutoffController(
+            model, k_samples=self.k_samples, min_frac=self.min_frac,
+            seed=self.seed + 101 * self._resize_count, backend=self.backend)
+        rows = self._trace[-(self._lag + 1):]
+        if rows:
+            ctl.seed_window(np.stack(rows))
+        self._dmm = ctl
+
+    def _active(self):
+        return self._dmm if self._dmm is not None else self._fallback
+
+    # -- window persistence (checkpoint contract) -----------------------
+    def window_array(self) -> np.ndarray:
+        """The lag-window tail of the imputed trace, oldest row first."""
+        return np.stack(self._trace[-(self._lag + 1):])
+
+    def seed_window(self, traces: np.ndarray):
+        """Warm-start from recorded rows at the CURRENT width."""
+        rows = [np.asarray(r, np.float64) for r in np.asarray(traces)]
+        if rows and rows[0].shape != (self._n,):
+            raise ValueError(f"seed rows have width {rows[0].shape}, "
+                             f"controller width is {self._n}")
+        self._trace = (self._trace + rows)[-self.history:]
+        for r in rows[-50:]:
+            self._fallback.buf.append(r)
+        if self._dmm is not None:
+            self._dmm.seed_window(np.stack(self._trace[-(self._lag + 1):]))
+
+    # -- decision / observation -----------------------------------------
+    def predict_cutoff(self) -> int:
+        self._poll_refit()
+        return self._active().predict_cutoff()
+
+    def predicted_order_stats(self):
+        if self._dmm is not None:
+            return self._dmm.predicted_order_stats()
+        return None
+
+    def predicted_samples(self):
+        if self._dmm is not None:
+            return self._dmm.predicted_samples()
+        return None
+
+    def observe(self, times, finished_mask=None):
+        t = np.asarray(times, np.float64)
+        if t.shape != (self._n,):
+            raise ValueError(
+                f"observe got {t.shape[0]} runtimes at width {self._n}; "
+                f"call resize() before observing the resized step")
+        row = t
+        if finished_mask is not None:
+            m = np.asarray(finished_mask, bool)
+            if not m.any():
+                raise ValueError(
+                    "observe got an all-False finished_mask: a step with "
+                    "zero finished workers has no observed cutoff time to "
+                    "impute the trace row at")
+            if not m.all():
+                # plain imputation at the observed cutoff time is enough
+                # for refit TRAINING data; the active DMM still runs the
+                # truncated-normal imputation for its own window
+                row = np.where(m, t, t[m].max())
+        self._trace = (self._trace + [row])[-self.history:]
+        if self._dmm is None:
+            self.fallback_steps += 1
+        self._active().observe(times, finished_mask)
+        self._fresh += 1
+        self._poll_refit()
+        if self._dmm is None and self._refit_job is None:
+            self._maybe_refit()
+
+    # -- resize protocol -------------------------------------------------
+    def resize(self, n_workers: int, col_map=None,
+               model: Optional[RuntimeModel] = None, members=None):
+        """Worker-set change: remap, fall back, schedule the refit.
+
+        ``col_map`` as in :func:`remap_columns`.  If ``model`` (already
+        fitted at the new width) is supplied, the DMM controller resumes
+        immediately; otherwise decisions route through the Elfving
+        fallback until the refit lands.
+        """
+        n_new = int(n_workers)
+        if model is not None and model.n_workers != n_new:
+            raise ValueError(
+                f"resize({n_new}) got a RuntimeModel of width "
+                f"{model.n_workers}; refit it for the new width first")
+        if n_new == self._n and col_map is None and model is None:
+            return
+        # abandon any in-flight refit WITHOUT blocking on its fit: the
+        # daemon thread keeps filling its orphaned result box, and
+        # _poll_refit_task discards it by generation
+        self._refit_job = None
+        if self._trace:
+            rows = remap_columns(np.stack(self._trace), n_new, col_map)
+            self._trace = [row for row in rows]
+        self._n = n_new
+        self._resize_count += 1
+        self._fresh = 0
+        self._drop_dmm()
+        self._fallback = ElfvingController(n_new,
+                                           warmup=self.fallback_warmup,
+                                           min_frac=self.min_frac)
+        for r in self._trace[-50:]:
+            self._fallback.buf.append(r)
+        if model is not None:
+            self._install_dmm(model)
+
+    # -- refit plumbing --------------------------------------------------
+    def _enough_rows(self) -> bool:
+        # RuntimeModel.fit needs strictly more than lag+1 rows; demand a
+        # small margin so the first refit windows aren't degenerate
+        return len(self._trace) >= self._lag + 1 + self.refit_batch
+
+    def _maybe_refit(self):
+        # failed attempts back the respawn off exponentially: each one
+        # demands twice the fresh observations before the next try
+        need = self.refit_fresh * (2 ** self._refit_failures)
+        if self._fresh < need or not self._enough_rows():
+            return
+        # freeze width/seed now: a resize mid-fit must not retarget the
+        # running fit (its result is discarded by generation anyway)
+        rows = np.stack(self._trace)
+        n = self._n
+        seed = self.seed + self._resize_count + 1000 * self._refit_failures
+        if self.refit_async:
+            self._refit_job = _spawn_refit(
+                lambda: self._fit_model(rows, n, seed), self._resize_count)
+        else:
+            self._install_dmm(self._fit_model(rows, n, seed))
+
+    def _poll_refit(self):
+        if self._refit_job is None:
+            return
+        # a resize since the fit started makes the result stale (wrong
+        # membership, possibly even the wrong width): dropped by
+        # generation/width
+        done, model, err = _poll_refit_task(self._refit_job,
+                                            self._resize_count, self._n)
+        if not done:
+            return
+        self._refit_job = None
+        if err is not None:
+            self._refit_failures += 1
+            if self._refit_failures > self.refit_retries:
+                raise RefitError(
+                    f"DMM refit failed {self._refit_failures} times at "
+                    f"width {self._n} (retry budget {self.refit_retries} "
+                    f"spent); last error: {err!r}") from err
+            # log + retry: stay on the fallback, reschedule with backoff
+            print(f"DMM refit failed ({err!r}); retrying after "
+                  f"{self.refit_fresh * 2 ** self._refit_failures} fresh "
+                  f"observations")
+            self._fresh = 0
+            return
+        if model is not None:
+            self._refit_failures = 0
+            self._install_dmm(model)
+
+    def _fit_model(self, rows: np.ndarray, n: int,
+                   seed: int) -> RuntimeModel:
+        """A RuntimeModel of width ``n`` fitted on ``rows``, on the device
+        of the controller's model.  On the card the fit runs on a stream
+        of its own, which is synchronized before the model is returned:
+        its params are complete for whichever thread installs it."""
+        model = RuntimeModel(n_workers=n, lag=self._lag, z_dim=self._z_dim,
+                             hidden=self._hidden, device=self._device)
+        stream = (torch.cuda.Stream(self._device)
+                  if self._device.type == "cuda" else None)
+        with (torch.cuda.stream(stream) if stream is not None
+              else contextlib.nullcontext()):
+            model.fit(rows, steps=self.refit_steps, batch=self.refit_batch,
+                      seed=seed)
+        if stream is not None:
+            stream.synchronize()
+        return model

@@ -340,9 +340,16 @@ class Trainer:
     newest valid step.
 
     Elastic membership: when the timer exposes ``n_workers`` /
-    ``active_ids``, the loop follows the worker set before each step
-    (:meth:`resize`).  ``obs`` raises until telemetry is ported (ROADMAP
-    A.14).
+    ``active_ids`` (``cluster.simulator.ChurnSim``), the loop follows the
+    worker set before each step (:meth:`resize`): the controller remaps
+    its window (``core.controller.ElasticController`` also decides through
+    its Elfving fallback until its DMM is refitted at the new width), and
+    the psum step's next call drops its (W, N) f32 worker buffer before it
+    allocates one of the new width (full-width qwen2-0.5b: 15.81 GB at
+    W = 8, 11.86 GB at W = 6), so the two never coexist.  A controller
+    that keeps no step of its own (``ElasticController``) has the
+    trainer's step saved in the ``ctl`` group, as in the reference.
+    ``obs`` raises until telemetry is ported (ROADMAP A.14).
     """
     step_fn: Callable
     data: Any
