@@ -17,7 +17,8 @@ Phases, one JSON line each; any failure exits non-zero:
                  asserted against the path's).  Cases: the serve prefill
                  (B 4, S 128), S 512, ragged S 100, Sq 16 over Sk 144, a
                  window of 128, f32, hd 128, the train forward per worker
-                 (B 2, S 128), decode at the serve's positions 131 and 159
+                 (B 2, 3 and 6, S 128), decode at the serve's positions 131
+                 and 159
                  and over a 4096-slot cache, the f32 parity decode, bf16
                  inputs off 16-byte alignment, decode over 48 keys (one
                  split), Sq 4 over Sk 200 (two 16-row tiles) and decode at
@@ -123,6 +124,41 @@ Phases, one JSON line each; any failure exits non-zero:
                  timed on the trainer's own (6, N) buffer; refit seconds,
                  memory by width, the first step after each resize, the
                  median step with and without a refit in flight
+  ps_parity      the multi-tenant server (repro_torch.ps.PSServer): J = 3
+                 jobs of widths 16/10/6 (DMMs fitted on the card, K 16) in
+                 one bucket over 100 paper_cluster_158 ticks: identical
+                 cutoffs from the card's server, three looped device
+                 CutoffControllers and the server on the CPU, flush() == 1
+                 every tick, >= 50 censored observations, windows within
+                 2e-3, 2 graphs captured and 101 replays; then J = 1 at
+                 n = 158 against the card's own controller (identical)
+  ps_timing      J in {1, 3, 8} at n = 8 and the ragged 16/10/6 bucket (K
+                 64, lag 20): device µs and CUDA kernels of one replay of
+                 the bucket's observe+decide graph beside J looped
+                 controllers' (device µs summed, kernels J x one's); host
+                 µs of a tick's flush and predict_cutoff fetches beside
+                 the looped controllers' observe + predict
+  train_multi_job
+                 three full-width qwen2-0.5b jobs of 6 workers through
+                 launch.multi_job (build_multi_job over
+                 PartitionedSim(paper_cluster_158(1, 18), partition_ids(18,
+                 3)), batch 24, seq 128, psum, fused AdamW, each job's
+                 RuntimeModel(6, lag 10) fitted on the card, PSServer with
+                 refit_async, refit_steps 60, refit_fresh 3; run_ticks
+                 under round robin): a ChurnEvent kills job1's workers 6
+                 and 7 at tick 8, the restore is appended once job1 has
+                 decided through its width-4 DMM for 2 ticks (tick 18 at
+                 the earliest), the run ends 2 ticks after it is back on
+                 its width-6 DMM (26 ticks at least); every step asserts
+                 its launches (flash 24 x W, masked_grad_agg 1, fused_adam
+                 1), every tick at most 2 decision launches and captures
+                 only where the stack changed; job1's modes run dmm,
+                 fallback, dmm at W 4, fallback, dmm at W 6, jobs 0 and 2
+                 stay on the DMM; the shared step keeps a (6, N) and a
+                 (4, N) buffer at width 4 (masked_grad_agg timed on job1's
+                 own) and frees the (4, N) one after; wall per tick and
+                 per step with and without a refit in flight, spawn to
+                 install of each refit, memory by period
   serve_xlstm    full-width xlstm-350m (bf16, seeded init) through
                  ServeEngine.generate: 4 prompts x 128 tokens, 32 greedy new
                  tokens; asserts 21 mlstm_chunk launches (the mLSTM
@@ -142,6 +178,7 @@ Without a CUDA device it exits 1 and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -196,6 +233,8 @@ FLASH_CASES = [
     FlashCase("hd128_s256", 2, 256, 256, 8, 2, 128, "bfloat16", "wgmma"),
     FlashCase("train_b2_s128", 2, 128, 128, 14, 2, 64, "bfloat16", "wgmma"),
     FlashCase("train_b3_s128", 3, 128, 128, 14, 2, 64, "bfloat16", "wgmma"),
+    # a train_multi_job worker at width 4 (batch 24 / 4)
+    FlashCase("train_b6_s128", 6, 128, 128, 14, 2, 64, "bfloat16", "wgmma"),
     FlashCase("decode_sk4096", 4, 1, 4096, 14, 2, 64, "bfloat16", "split_kv",
               cache=4096),
     FlashCase("decode_pos159", 4, 1, 160, 14, 2, 64, "bfloat16", "split_kv",
@@ -2026,6 +2065,500 @@ def phase_train_elastic(torch, cfg, params_f32):
     return totals, agg
 
 
+# ---------------------------------------------------------------------------
+# The multi-tenant parameter server: no kernel of its own (the decision is
+# torch ops in one CUDA graph a bucket); its parity, its timing beside the
+# looped controllers, and three full-width jobs through a worker churn.
+# ---------------------------------------------------------------------------
+
+PS_WIDTHS = (16, 10, 6)   # the ragged bucket (tests/test_torch_ps.py)
+PS_TICKS = 100
+PS_K = 16
+PS_TIMING = (("j1_n8", (8,)), ("j3_n8", (8,) * 3), ("j8_n8", (8,) * 8),
+             ("ragged_16_10_6", PS_WIDTHS))
+MJ_JOBS, MJ_W = 3, 6       # three jobs of 6 workers: partitions of 18
+MJ_VICTIMS = (6, 7)        # job1's first two workers
+MJ_KILL = 8                # the kill takes effect at this tick
+MJ_RESTORE_MIN = 18        # the restore no earlier than this tick ...
+MJ_DMM_TICKS = 2           # ... and after this many DMM ticks at width 4
+MJ_TICKS_MIN = 26
+MJ_TICKS_MAX = 60
+
+
+def _runs(seq):
+    """Consecutive runs of equal items, each kept once."""
+    return [x for i, x in enumerate(seq) if i == 0 or seq[i - 1] != x]
+
+
+def _graph_device_us(torch, graph, reps=50):
+    """Device µs of one replay of ``graph``: ``reps`` back-to-back replays
+    between CUDA events."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps * 1e3
+
+
+def _ps_parity(torch):
+    """J = 3 ragged jobs (16/10/6) over PS_TICKS ticks: the card's server
+    against three looped device controllers and against the server on the
+    CPU; then J = 1 at n = 158 against the card's own controller."""
+    from repro_torch.cluster.simulator import paper_cluster_158
+    from repro_torch.core.controller import CutoffController
+    from repro_torch.core.cutoff import order_stats
+    from repro_torch.core.runtime_model.api import RuntimeModel
+    from repro_torch.ps import PSServer
+
+    t0 = time.perf_counter()
+    card, cpu = PSServer(), PSServer()
+    refs, hc, hp, sims = [], [], [], []
+    for j, n in enumerate(PS_WIDTHS):
+        trace = paper_cluster_158(seed=n, n_workers=n).run(40)
+        rm = RuntimeModel(n, lag=10, device="cuda").init(0)
+        rm.fit(trace, steps=50, batch=8, seed=0)
+        ref = CutoffController(rm, k_samples=PS_K, seed=11 * j)
+        ref.seed_window(trace)
+        refs.append(ref)
+        hc.append(card.admit(f"job{j}", rm, window=trace, k_samples=PS_K,
+                             seed=11 * j))
+        hp.append(cpu.admit(f"job{j}", rm.to("cpu"), window=trace,
+                            k_samples=PS_K, seed=11 * j))
+        sims.append(paper_cluster_158(seed=300 + j, n_workers=n))
+    fit_s = time.perf_counter() - t0
+    check(len(card._buckets) == 1, "mixed widths must share one bucket")
+    b = next(iter(card._buckets.values()))
+    censored, seqs = 0, [[] for _ in PS_WIDTHS]
+    t0 = time.perf_counter()
+    for tick in range(PS_TICKS):
+        card.prefetch()
+        cpu.prefetch()
+        for j in range(len(PS_WIDTHS)):
+            c = (refs[j].predict_cutoff(), hc[j].predict_cutoff(),
+                 hp[j].predict_cutoff())
+            check(c[0] == c[1] == c[2], f"ps_parity tick {tick} job{j}: "
+                  f"cutoffs {c} (looped controller, card server, CPU server)")
+            seqs[j].append(c[0])
+            t = sims[j].step()
+            mask = t <= order_stats.iter_time(t, c[0]) + 1e-12
+            censored += int(not mask.all())
+            for h in (refs[j], hc[j], hp[j]):
+                h.observe(t, mask)
+        fl = (card.flush(), cpu.flush())
+        check(fl == (1, 1), f"ps_parity tick {tick}: flush {fl}, want 1 "
+              f"launch a tick on each server")
+    err_ref = err_cpu = 0.0
+    for j in range(len(PS_WIDTHS)):
+        a, r, p = (hc[j].window_array(), refs[j].window_array(),
+                   hp[j].window_array())
+        err_ref = max(err_ref, float(np.abs(a - r).max()))
+        err_cpu = max(err_cpu, float(np.abs(a - p).max()))
+        check(_rel_close(a, r, WINDOW_TOL) and _rel_close(a, p, WINDOW_TOL),
+              f"ps_parity job{j}: windows differ by {err_ref} (controller) "
+              f"and {err_cpu} (CPU server)")
+    out = {"J": len(PS_WIDTHS), "widths": list(PS_WIDTHS), "n_pad": b.n_pad,
+           "ticks": PS_TICKS, "k_samples": PS_K,
+           "cutoffs": {f"job{j}": s for j, s in enumerate(seqs)},
+           "distinct_cutoffs": [len(set(s)) for s in seqs],
+           "censored_observations": censored,
+           "window_max_abs_err_vs_controllers": err_ref,
+           "window_max_abs_err_vs_cpu_server": err_cpu,
+           "window_tol": WINDOW_TOL, "graphs": sorted(b.graphs),
+           "captures": b.captures, "replays": b.replays,
+           "dispatches": card.dispatches, "fit_seconds": fit_s,
+           "seconds": time.perf_counter() - t0}
+    emit("ps_parity", **out)
+    check(censored >= 50, f"only {censored} censored observations")
+    check(any(len(set(s)) > 1 for s in seqs), "one cutoff for every step")
+    check(b.captures == 2 and b.replays == PS_TICKS + 1,
+          f"{b.captures} captures and {b.replays} replays for "
+          f"{PS_TICKS} ticks: want 2 and {PS_TICKS + 1}")
+
+    # J = 1 at n = 158 against the card's own controller
+    t0 = time.perf_counter()
+    trace = paper_cluster_158(seed=0).run(60)
+    rm = RuntimeModel(158, lag=20, device="cuda").init(0)
+    rm.fit(trace, steps=30, batch=8, seed=0)
+    ref = CutoffController(rm, k_samples=32, seed=0)
+    ref.seed_window(trace)
+    srv = PSServer()
+    h = srv.admit("job0", rm, window=trace, k_samples=32, seed=0)
+    sim = paper_cluster_158(seed=7)
+    cutoffs, censored = [], 0
+    for step in range(100):
+        c = (ref.predict_cutoff(), h.predict_cutoff())
+        check(c[0] == c[1], f"ps_parity_158 step {step}: cutoffs {c} "
+              f"(controller, server)")
+        cutoffs.append(c[0])
+        t = sim.step()
+        mask = t <= order_stats.iter_time(t, c[0]) + 1e-12
+        censored += int(not mask.all())
+        ref.observe(t, mask)
+        h.observe(t, mask)
+        check(srv.flush() == 1, f"ps_parity_158 step {step}: flush")
+    a, r = h.window_array(), ref.window_array()
+    out158 = {"n": 158, "steps": 100, "k_samples": 32,
+              "distinct_cutoffs": len(set(cutoffs)),
+              "censored_steps": censored,
+              "window_max_abs_err": float(np.abs(a - r).max()),
+              "seconds": time.perf_counter() - t0}
+    emit("ps_parity_158", **out158)
+    check(censored >= 50 and len(set(cutoffs)) > 1, f"ps_parity_158: "
+          f"{censored} censored steps, {len(set(cutoffs))} cutoffs")
+    check(_rel_close(a, r, WINDOW_TOL), f"ps_parity_158: windows differ "
+          f"by {out158['window_max_abs_err']}")
+    return out
+
+
+def _ps_timing(torch):
+    """For each PS_TIMING case (K 64, lag 20, as dmm_timing): the bucket's
+    observe+decide graph (device µs a replay, CUDA kernels a replay) and
+    the host µs of a tick's flush and predict_cutoff fetches, beside the
+    same jobs decided by J looped device controllers."""
+    from repro_torch.cluster.simulator import ClusterSim
+    from repro_torch.core.controller import CutoffController
+    from repro_torch.core.cutoff import order_stats
+    from repro_torch.core.runtime_model.api import RuntimeModel
+    from repro_torch.ps import PSServer
+
+    K, lag, ticks, warm = 64, 20, 30, 5
+    out = {}
+    for case, widths in PS_TIMING:
+        J = len(widths)
+        models, traces = [], []
+        for j, n in enumerate(widths):
+            tr = ClusterSim(n_workers=n, n_nodes=2, seed=3 + j).run(40)
+            rm = RuntimeModel(n, lag=lag, device="cuda").init(1 + j)
+            rm.norm_scale = float(2.0 * tr[:lag + 1].mean())
+            models.append(rm)
+            traces.append(tr)
+        srv = PSServer()
+        hs = [srv.admit(f"job{j}", rm, window=tr, k_samples=K, seed=j)
+              for j, (rm, tr) in enumerate(zip(models, traces))]
+        ctls = []
+        for j, (rm, tr) in enumerate(zip(models, traces)):
+            ctl = CutoffController(rm, k_samples=K, seed=j)
+            ctl.seed_window(tr)
+            ctls.append(ctl)
+        sims = [ClusterSim(n_workers=n, n_nodes=2, seed=40 + j)
+                for j, n in enumerate(widths)]
+        flush_us, pred_us, loop_us = [], [], []
+        for tick in range(ticks):
+            srv.prefetch()
+            t_pred = 0.0
+            for j, h in enumerate(hs):
+                t0 = time.perf_counter()
+                c = h.predict_cutoff()
+                t_pred += time.perf_counter() - t0
+                t = sims[j].step()
+                h.observe(t, t <= order_stats.iter_time(t, c) + 1e-12)
+            t0 = time.perf_counter()
+            srv.flush()
+            t_flush = time.perf_counter() - t0
+            t_loop = 0.0
+            for j, ctl in enumerate(ctls):
+                t = sims[j].step()
+                t0 = time.perf_counter()
+                c = ctl.predict_cutoff()
+                ctl.observe(t, t <= order_stats.iter_time(t, c) + 1e-12)
+                t_loop += time.perf_counter() - t0
+            if tick >= warm:      # the first ticks capture the graphs
+                flush_us.append(t_flush * 1e6)
+                pred_us.append(t_pred * 1e6)
+                loop_us.append(t_loop * 1e6)
+        srv.flush()
+        b = next(iter(srv._buckets.values()))
+        b.wait()
+        graph = b.graphs["observe"]
+        per = kernels_per_call(torch, graph.replay)
+        loop_graphs = [c.graphs[max(c.graphs, key=lambda k: k[0]
+                                    == "censored")] for c in ctls]
+        loop_dev = [_graph_device_us(torch, g) for g in loop_graphs]
+        loop_per = kernels_per_call(torch, loop_graphs[0].replay)
+        rec = {"J": J, "widths": list(widths), "n_pad": b.n_pad,
+               "k_samples": K, "lag": lag,
+               "device_us_per_replay": _graph_device_us(torch, graph),
+               "cuda_kernels_per_replay": sum(v["per_call"]
+                                              for v in per.values()),
+               "looped_device_us": sum(loop_dev),
+               "looped_cuda_kernels": J * sum(v["per_call"]
+                                              for v in loop_per.values()),
+               "flush_wall_us": float(np.median(flush_us)),
+               "predict_fetch_wall_us": float(np.median(pred_us)),
+               "flush_plus_predict_wall_us": float(np.median(
+                   np.add(flush_us, pred_us))),
+               "looped_observe_plus_predict_wall_us": float(np.median(
+                   loop_us)),
+               "captures": b.captures, "replays": b.replays,
+               "dispatches": srv.dispatches}
+        emit("ps_timing", case=case, **rec)
+        check(b.captures == 2, f"ps_timing {case}: {b.captures} captures")
+        out[case] = rec
+        del srv, hs, ctls, graph, loop_graphs, b
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_ps(torch):
+    """ps_parity and ps_timing, then the memory they leave behind.  Each
+    controller and bucket runs on a stream of its own, and cuBLAS keeps
+    a workspace for every stream that ran a matmul (~0.8 GB for this
+    phase's ~25 streams in a run on the H100), which later phases' peaks
+    would otherwise carry: the workspaces are released here."""
+    before = torch.cuda.memory_allocated()
+    out = {"parity": _ps_parity(torch), "timing": _ps_timing(torch)}
+    gc.collect()
+    left = torch.cuda.memory_allocated()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    torch.cuda.empty_cache()
+    emit("ps_memory", allocated_before=before, allocated_after=left,
+         cublas_workspaces_cleared=clear is not None,
+         allocated_after_clearing=torch.cuda.memory_allocated())
+    return out
+
+
+def phase_train_multi_job(torch, cfg):
+    """Three full-width qwen2-0.5b jobs (bf16, seq 128, global batch 24,
+    psum, fused AdamW) of 6 workers each through launch.multi_job:
+    build_multi_job over PartitionedSim(paper_cluster_158(1, 18),
+    partition_ids(18, 3)), each job's RuntimeModel(6, lag 10) fitted on the
+    card, one PSServer (k_samples 32, refit_async, refit_steps 60,
+    refit_fresh 3), round-robin, run_ticks one tick at a time.  A
+    ChurnEvent kills job1's workers 6 and 7 at tick 8; the restore is
+    appended to the schedule once job1 has decided through its refitted
+    width-4 DMM for 2 ticks (and no earlier than tick 18), so a slow refit
+    stretches the run instead of failing it; the run ends once job1 has
+    decided through its width-6 DMM for 2 ticks (at least 26 ticks).
+
+    Every step asserts the launches at its width (flash 24 x W,
+    masked_grad_agg 1, fused_adam 1), a finite loss and 1 <= c <= n;
+    every tick at most 2 launches of the decision, captures only where the
+    stack changed.  job1's modes run dmm, fallback, dmm at width 4,
+    fallback, dmm at width 6; jobs 0 and 2 stay on the DMM.  At width 4
+    the shared step keeps a (4, N) and a (6, N) buffer, and
+    masked_grad_agg is timed on job1's own (4, N) one."""
+    from repro_torch.cluster.simulator import ChurnEvent
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels.ref import reference_masked_agg
+    from repro_torch.launch.multi_job import build_multi_job, run_ticks
+    from repro_torch.ps import make_scheduler
+
+    L = cfg.n_layers
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    server, jobs, sim = build_multi_job(
+        MJ_JOBS, MJ_W, seed=SEED, churn_events=[
+            ChurnEvent(step=MJ_KILL, kill=MJ_VICTIMS)],
+        global_batch=ELASTIC_BATCH, refit_steps=REFIT_STEPS,
+        refit_fresh=REFIT_FRESH, refit_async=True, metrics_every=1,
+        device="cuda", cfg=cfg, seq_len=128, mask_agg="psum")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t_phase
+    step_fn = jobs["job0"].trainer.step_fn
+    check(all(r.trainer.step_fn is step_fn for r in jobs.values()),
+          "the jobs must share one train step")
+    emit("train_multi_job_setup", jobs=MJ_JOBS, workers=MJ_W,
+         batch=ELASTIC_BATCH, seq=128, seconds=setup_s,
+         memory_allocated=torch.cuda.memory_allocated(),
+         windows=[int(server.registry[j].count) for j in jobs])
+
+    steps, modes, refits, tick_of = [], {j: [] for j in jobs}, [], [0]
+    totals = {}
+
+    def in_flight():
+        return any(j.refit_task is not None and j.refit_task[0].is_alive()
+                   for j in server.registry.jobs())
+
+    def instrument(job_id, tr):
+        run, predict = tr.run, tr.controller.predict_cutoff
+
+        def traced_predict():
+            c = predict()
+            modes[job_id].append(server.registry[job_id].mode)
+            return c
+
+        def timed_run(n_steps, **kw):
+            alive0 = in_flight()
+            build.LAUNCHES.clear()
+            t0 = time.perf_counter()
+            hist = run(n_steps, **kw)     # drains the loss: a device sync
+            wall = time.perf_counter() - t0
+            launches = dict(build.LAUNCHES)
+            for k, v in launches.items():
+                totals[k] = totals.get(k, 0) + v
+            rec = hist[-1]
+            n, c = rec["n"], rec["c"]
+            want = {"flash_attention": L * n, "masked_grad_agg": 1,
+                    "fused_adam": 1}
+            check(launches == want, f"train_multi_job {job_id} step "
+                  f"{rec['step']} (n {n}): launches {launches}, want {want}")
+            check(bool(np.isfinite(rec["loss"])), f"train_multi_job "
+                  f"{job_id} step {rec['step']}: loss {rec['loss']}")
+            check(1 <= c <= n, f"train_multi_job {job_id}: c {c} of {n}")
+            steps.append({"job": job_id, "tick": tick_of[0], "n": n, "c": c,
+                          "mode": modes[job_id][-1], "wall_ms": wall * 1e3,
+                          "refit_in_flight": [alive0, in_flight()],
+                          "loss": rec["loss"]})
+            return hist
+
+        tr.controller.predict_cutoff = traced_predict
+        tr.run = timed_run
+
+    for job_id, r in jobs.items():
+        instrument(job_id, r.trainer)
+    fit_model, install = server._fit_model, server._install_refit
+
+    def timed_fit(job, rows, n, seed):
+        r = {"job": job.job_id, "n": n, "seed": seed, "rows": len(rows),
+             "spawned": time.perf_counter(), "spawn_tick": tick_of[0]}
+        refits.append(r)
+        model = fit_model(job, rows, n, seed)
+        r["fit_s"] = time.perf_counter() - r["spawned"]
+        return model
+
+    def timed_install(job, model):
+        install(job, model)
+        r = [x for x in refits if x["job"] == job.job_id][-1]
+        r["spawn_to_install_s"] = time.perf_counter() - r["spawned"]
+        r["install_tick"] = tick_of[0]
+
+    server._fit_model, server._install_refit = timed_fit, timed_install
+    bucket = next(iter(server._buckets.values()))
+    sched = make_scheduler("rr")
+    ticks, restore_at, agg, mem = [], None, None, {}
+    tick = 0
+    while True:
+        check(tick < MJ_TICKS_MAX, f"train_multi_job: job1 not back on its "
+              f"width-6 DMM after {MJ_TICKS_MAX} ticks (refits {refits})")
+        tick_of[0] = tick
+        caps, st = bucket.captures, bucket.st
+        t0 = time.perf_counter()
+        out = run_ticks(server, jobs, sched, 1)
+        wall = time.perf_counter() - t0
+        j1 = [s for s in steps if s["job"] == "job1"][-1]
+        period = ("w6" if tick < MJ_KILL else "w4"
+                  if restore_at is None or tick < restore_at else "w6_again")
+        m = mem.setdefault(period, {"max_memory_allocated": 0,
+                                    "memory_reserved": 0})
+        m["max_memory_allocated"] = max(m["max_memory_allocated"],
+                                        torch.cuda.max_memory_allocated())
+        m["memory_reserved"] = max(m["memory_reserved"],
+                                   torch.cuda.memory_reserved())
+        ticks.append({"tick": tick, "wall_ms": wall * 1e3,
+                      "dispatches": out["dispatches"],
+                      "captures": bucket.captures - caps,
+                      "restacked": bucket.st is not st,
+                      "job1": [j1["n"], j1["mode"]],
+                      "c": [s["c"] for s in steps[-MJ_JOBS:]]})
+        emit("train_multi_job", **ticks[-1])
+        j1_steps = [s for s in steps if s["job"] == "job1"]
+        dmm4 = sum(1 for s in j1_steps if (s["n"], s["mode"]) == (4, "dmm"))
+        if (restore_at is None and dmm4 >= MJ_DMM_TICKS
+                and tick + 1 >= MJ_RESTORE_MIN):
+            # width 4, on its DMM, no fit thread: job1's own (4, N) buffer
+            check(not in_flight(), "a refit in flight at the end of width 4")
+            widths = sorted(k[0] for k in step_fn.buffers)
+            check(widths == [4, MJ_W], f"buffers of widths {widths} at "
+                  f"width 4: want one per width in use")
+            g = next(v for k, v in step_fn.buffers.items()
+                     if k[0] == 4).buf
+            mask = _agg_masks(torch, g.shape[0], torch.Generator(
+                device="cuda").manual_seed(SEED))["bits"]
+            got = ops.masked_aggregate(g, mask)
+            want = reference_masked_agg(g, mask.reshape(-1, 1))[0]
+            err = (got - want).abs().max().item()
+            ex = _allclose_excess(torch, got, want, AGG_TOL["float32"],
+                                  AGG_TOL["float32"]).item()
+            del got, want
+            agg = {"W": g.shape[0], "N": g.shape[1], "max_abs_err": err,
+                   "buffers_widths": widths,
+                   **_agg_times(torch, torch.cuda.Stream(), g, mask, 5)}
+            emit("train_multi_job_masked_grad_agg", **agg)
+            check(ex <= AGG_TOL["float32"], f"masked_grad_agg on the "
+                  f"(4, N) buffer: off by {ex}")
+            del g, mask
+            # the timing's own peak (the plain version's temporaries) is
+            # not the training's
+            torch.cuda.reset_peak_memory_stats()
+            restore_at = tick + 1
+            sim.events.append(ChurnEvent(step=restore_at,
+                                         restore=MJ_VICTIMS))
+            check(bool(sim.membership_at(restore_at)[list(MJ_VICTIMS)]
+                       .all()), "the restore did not reach the schedule")
+        tick += 1
+        dmm6 = sum(1 for s in j1_steps if restore_at is not None
+                   and s["tick"] >= restore_at
+                   and (s["n"], s["mode"]) == (MJ_W, "dmm"))
+        if dmm6 >= MJ_DMM_TICKS and tick >= MJ_TICKS_MIN:
+            break
+    buffers_after = sorted(k[0] for k in step_fn.buffers)
+
+    # the summary, printed before it is checked
+    runs = {j: _runs([(s["n"], s["mode"]) for s in steps if s["job"] == j])
+            for j in jobs}
+    walls = {}
+    for n in (MJ_W, 4):
+        kept = [s for s in steps if s["n"] == n and s["tick"] > 0]
+        busy = [s["wall_ms"] for s in kept if all(s["refit_in_flight"])]
+        idle = [s["wall_ms"] for s in kept
+                if not any(s["refit_in_flight"])]
+        walls[str(n)] = {
+            "refit_in_flight": float(np.median(busy)) if busy else None,
+            "no_refit": float(np.median(idle)) if idle else None,
+            "steps": [len(busy), len(idle)]}
+    for r in refits:
+        r.pop("spawned")
+    tick_walls = [t["wall_ms"] for t in ticks[1:]]
+    out = {"ticks": len(ticks), "kill_tick": MJ_KILL,
+           "restore_tick": restore_at, "mode_runs": runs,
+           "dispatches": sum(t["dispatches"] for t in ticks),
+           "dispatches_by_tick": [t["dispatches"] for t in ticks],
+           "captures_by_tick": [t["captures"] for t in ticks],
+           "captures": bucket.captures, "replays": bucket.replays,
+           "tick_wall_ms_median": float(np.median(tick_walls)),
+           "step_wall_ms_median_by_width": walls, "refits": refits,
+           "memory_by_period": mem,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "buffers_widths_at_end": buffers_after,
+           "masked_grad_agg_w4": agg, "launches": totals,
+           "setup_seconds": setup_s,
+           "seconds": time.perf_counter() - t_phase}
+    emit("train_multi_job_summary", **out)
+    check(runs["job1"] == [(MJ_W, "dmm"), (4, "fallback"), (4, "dmm"),
+                           (MJ_W, "fallback"), (MJ_W, "dmm")],
+          f"job1 mode runs {runs['job1']} (refits {refits})")
+    for j in ("job0", "job2"):
+        check(runs[j] == [(MJ_W, "dmm")], f"{j} mode runs {runs[j]}")
+    # one launch a tick; a second in the first tick (its decide-only
+    # prefetch), in each resize's tick (resize flushes what is queued) and
+    # in each rejoin's tick (the rejoined job's first decision)
+    check(all(d <= 2 for d in out["dispatches_by_tick"])
+          and out["dispatches"] <= len(ticks) + 5,
+          f"decision launches by tick {out['dispatches_by_tick']}")
+    # a capture only in the tick the stack changed, or the next one (its
+    # first decide-only launch): never in a steady tick
+    changed = {0} | {i + d for i, t in enumerate(ticks) if t["restacked"]
+                     for d in (0, 1)}
+    check(all(t["captures"] == 0 for t in ticks if t["tick"] not in changed),
+          f"a steady tick captured: {out['captures_by_tick']}")
+    check(len(refits) == 2 and all("spawn_to_install_s" in r
+                                    for r in refits), f"refits {refits}")
+    check(buffers_after == [MJ_W], f"buffers of widths {buffers_after} "
+          f"after the restore: want the width-4 one freed")
+    # the instrumented methods close over their trainers: collect the
+    # cycles before the next phase
+    del server, jobs, sim, step_fn, bucket
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals, agg
+
+
 def _mlstm_inputs(torch, B, S, H, hd, dtname, gates, gen):
     """q/k/v in ``dtname`` and f32 log gates, as the mLSTM block makes
     them: g = log_sigmoid(forget logits), i = the input logits."""
@@ -2301,6 +2834,7 @@ def main() -> int:
                                           cfg, params_f32)
     timed(sec, "train_parity", phase_train_parity, torch, cfg)
     timed(sec, "dmm", phase_dmm, torch)
+    timed(sec, "ps", phase_ps, torch)
     dmm_launches, rm = timed(sec, "train_dmm", phase_train_dmm, torch, cfg,
                              params_f32, firstk_clocks)
     policy_launches = timed(sec, "train_policies", phase_train_policies,
@@ -2310,6 +2844,8 @@ def main() -> int:
                                      phase_train_elastic, torch, cfg,
                                      params_f32)
     del params_f32
+    multi_launches, agg_w4 = timed(sec, "train_multi_job",
+                                   phase_train_multi_job, torch, cfg)
     xcfg, xparams = timed(sec, "init_xlstm", init_xlstm, torch)
     xlstm_launches = timed(sec, "serve_xlstm", phase_serve_xlstm, torch,
                            xcfg, xparams)
@@ -2324,6 +2860,7 @@ def main() -> int:
                    "train_dmm": dmm_launches.get(name, 0),
                    "train_policies": policy_launches.get(name, 0),
                    "train_elastic": elastic_launches.get(name, 0),
+                   "train_multi_job": multi_launches.get(name, 0),
                    "serve_xlstm": xlstm_launches.get(name, 0)}
         return sum(by_path.values()), by_path
 
@@ -2349,8 +2886,9 @@ def main() -> int:
              flash_err, head, HEADLINE_CASE, flash_extra),
             ("masked_grad_agg", "src/repro/kernels/masked_grad_agg.py:32",
              agg_err, agg_head, AGG_HEADLINE,
-             {f"w6_{k}": agg_w6[k] for k in ("ms", "plain_ms", "library_ms",
-                                              "bound_ms", "max_abs_err")}),
+             {f"w{w}_{k}": agg[k] for w, agg in ((6, agg_w6), (4, agg_w4))
+              for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                        "max_abs_err")}),
             ("fused_adam", "src/repro/kernels/fused_adam.py:40", adam_err,
              adam_head, ADAM_HEADLINE, {}),
             ("mlstm_chunk", "src/repro/kernels/mlstm_chunk.py:87",

@@ -2,11 +2,11 @@
 
 The port keeps its own copy of the numpy-only ``ClusterSim``, the
 ``microbatch_progress`` query, the churn layer (``ChurnEvent``,
-``ChurnSim``, ``resize_schedule``) and the presets, so that it never
-imports the JAX package; the same seed gives the same runtimes and the
-same membership schedule.  The fault overlay (``OverlaySim``) comes with
-the control plane (ROADMAP A.13), the multi-tenant partitioning
-(``PartitionedSim``) with the parameter server (A.12).
+``ChurnSim``, ``resize_schedule``), the multi-tenant partitioning
+(``partition_ids``, ``PartitionView``, ``PartitionedSim``) and the
+presets, so that it never imports the JAX package; the same seed gives the
+same runtimes and the same membership schedule.  The fault overlay
+(``OverlaySim``) comes with the control plane (ROADMAP A.13).
 
 Generates joint worker runtimes with the phenomenology the paper observes on
 its real clusters (Fig. 2): machine-correlated slowdowns (workers share
@@ -219,6 +219,159 @@ class ChurnSim:
 def resize_schedule(base, plan: List[Tuple[int, int]]) -> ChurnSim:
     """ChurnSim from a [(step, n_workers), ...] width plan."""
     return ChurnSim(base, [ChurnEvent(step=s, resize=n) for s, n in plan])
+
+
+# ---------------------------------------------------------------------------
+# Multi-tenant partitioning: J jobs share one cluster's workers.
+# ---------------------------------------------------------------------------
+
+
+def partition_ids(n_workers: int, n_jobs: int) -> List[np.ndarray]:
+    """Contiguous near-equal partition of global worker ids over jobs
+    (first ``n_workers % n_jobs`` partitions get the extra worker) —
+    the same convention the node assignment uses."""
+    if not 1 <= n_jobs <= n_workers:
+        raise ValueError(f"cannot split {n_workers} workers into "
+                         f"{n_jobs} jobs")
+    sizes = np.full(n_jobs, n_workers // n_jobs)
+    sizes[: n_workers % n_jobs] += 1
+    bounds = np.concatenate([[0], np.cumsum(sizes)])
+    return [np.arange(bounds[j], bounds[j + 1]) for j in range(n_jobs)]
+
+
+class PartitionView:
+    """One job's timer view of a :class:`PartitionedSim` partition.
+
+    Implements the Trainer timer protocol (``n_workers`` /
+    ``active_ids`` / ``step``) over the job's slice of the shared
+    cluster.  Views advance independent cursors, so the multi-job
+    scheduler can service jobs at different rates and each job's runtime
+    series stays internally consistent; churn events apply at the VIEW's
+    own step index (ChurnEvent semantics: the event fires before the
+    runtimes of iteration ``step`` are drawn).
+    """
+
+    def __init__(self, parent: "PartitionedSim", ids: np.ndarray):
+        self.parent = parent
+        self.ids = np.asarray(ids, int)
+        self.t = 0
+
+    def _active_mask(self) -> np.ndarray:
+        member = self.parent.membership_at(self.t)
+        return member[self.ids]
+
+    @property
+    def n_workers(self) -> int:
+        return int(self._active_mask().sum())
+
+    @property
+    def active_ids(self) -> np.ndarray:
+        """Global worker ids of this partition's active set, ascending."""
+        return self.ids[self._active_mask()]
+
+    def step(self) -> np.ndarray:
+        """Joint runtimes of the partition's CURRENT active set."""
+        row = self.parent.row(self.t)
+        out = row[self.active_ids]
+        self.t += 1
+        return out
+
+    def run(self, n_steps: int) -> List[np.ndarray]:
+        return [self.step() for _ in range(n_steps)]
+
+
+class PartitionedSim:
+    """Split one base cluster's workers among J concurrent jobs.
+
+    The base simulator keeps generating FULL-width joint runtimes — node
+    regimes and AR load are properties of the shared hardware, not of
+    which job leases which worker — and each :class:`PartitionView`
+    serves its partition's columns.  Rows are generated once and cached
+    by step index, so every view of step ``i`` sees the SAME draw:
+    worker j's runtime series is identical whether it is read by a
+    multi-job loop or a single-tenant run (column-exactness, the
+    ChurnSim invariant, extended across tenants).  Rows every registered
+    view has moved past are pruned, so memory is bounded by the cursor
+    SPREAD between jobs, not run length — and the spread itself is
+    bounded by ``max_cache`` rows, so a pinned cursor (a starved or
+    evicted job whose view stopped advancing) cannot grow the cache
+    without bound; it gets a loud ``IndexError`` on its next read
+    instead.  Create all views before stepping (a view opened after
+    pruning raises the same way).
+
+    ``events`` is a :class:`ChurnEvent` schedule over GLOBAL worker ids;
+    a kill inside partition p shrinks job p's view (its Trainer resizes
+    through the elastic protocol) and leaves every other job untouched.
+    """
+
+    def __init__(self, base, partitions: List[np.ndarray],
+                 events: List[ChurnEvent] = (), max_cache: int = 4096):
+        self.base = base
+        self.max_cache = max_cache
+        self.partitions = [np.asarray(p, int) for p in partitions]
+        flat = np.concatenate(self.partitions) if self.partitions else \
+            np.array([], int)
+        if flat.size != np.unique(flat).size:
+            raise ValueError("partitions overlap")
+        if flat.size and (flat.min() < 0 or flat.max() >= base.n_workers):
+            raise ValueError("partition ids outside the base cluster")
+        for ev in events:
+            if ev.resize is not None:
+                raise ValueError(
+                    "ChurnEvent.resize targets a global width; partitioned "
+                    "schedules must kill/restore explicit worker ids")
+        self.events = sorted(events, key=lambda e: e.step)
+        self._rows: List[np.ndarray] = []
+        self._row0 = 0                       # step index of _rows[0]
+        self._members: dict = {}
+        self._views: List[PartitionView] = []
+
+    def _prune(self):
+        """Drop cached rows/masks no registered view can read again —
+        or, past ``max_cache``, rows only a pinned (stalled) view could."""
+        if not self._views:
+            return
+        low = min(v.t for v in self._views)
+        low = max(low, self._row0 + len(self._rows) - self.max_cache)
+        while self._row0 < low:
+            self._rows.pop(0)
+            self._row0 += 1
+        if len(self._members) > len(self.events) + 2:
+            self._members = {i: m for i, m in self._members.items()
+                             if i >= low}
+
+    def row(self, i: int) -> np.ndarray:
+        """The full-width joint runtimes of step ``i`` (cached)."""
+        if i < self._row0:
+            raise IndexError(
+                f"row {i} was pruned (oldest cached: {self._row0}); "
+                f"create every PartitionView before stepping")
+        while len(self._rows) <= i - self._row0:
+            self._rows.append(self.base.step())
+            self._prune()
+        return self._rows[i - self._row0]
+
+    def membership_at(self, i: int) -> np.ndarray:
+        """Global active mask after every event with ``step <= i``."""
+        if i not in self._members:
+            active = np.ones(self.base.n_workers, bool)
+            for ev in self.events:
+                if ev.step > i:
+                    break
+                if ev.kill:
+                    active[list(ev.kill)] = False
+                if ev.restore:
+                    active[list(ev.restore)] = True
+            self._members[i] = active
+        return self._members[i]
+
+    def view(self, job: int) -> PartitionView:
+        v = PartitionView(self, self.partitions[job])
+        self._views.append(v)
+        return v
+
+    def views(self) -> List[PartitionView]:
+        return [self.view(j) for j in range(len(self.partitions))]
 
 
 # ---------------------------------------------------------------------------

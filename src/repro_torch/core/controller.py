@@ -33,6 +33,11 @@ elastic membership.  The port of ``repro.core.controller``:
     thread with ``refit_async=True``: on the card the fit runs on a
     stream of its own) and swaps the refitted DMM back in.
     ``_spawn_refit`` / ``_poll_refit_task`` are the refit task's shape.
+  * The ragged batched decision of the multi-tenant parameter server
+    (``repro_torch.ps``): ``_batched_observe_decide_ragged`` /
+    ``_batched_decide_ragged`` over an explicit leading job axis, and the
+    host-built key rows (``_prng_key_rows``, ``stacked_prng_keys``,
+    ``_batched_impute_keys``) its packed upload carries.
 """
 from __future__ import annotations
 
@@ -395,6 +400,88 @@ def _impute_key(seed: int, step: int):
     prediction keys (``PRNGKey(seed + step)``)."""
     return R.threefry2x32(0, (seed + 1_000_003) & 0xFFFFFFFF,
                           0, step & 0xFFFFFFFF)
+
+
+# ---------------------------------------------------------------------------
+# The ragged batched decision of the multi-tenant parameter server
+# (``repro_torch.ps``): J jobs of one DMM architecture, mixed widths
+# included, decided by ONE body over an explicit leading job axis.  Every
+# operand carries the (J,) axis: params stacked by
+# ``api.stack_models_padded`` (laid out by ``api.batched_layout``), the
+# (J, lag+1, n_pad) ring stack, heads, the observation rows, masks and
+# moments, keys, norm scales, widths, argmax floors and censor flags.  The
+# server captures the body as one CUDA graph a bucket on the card.
+# ---------------------------------------------------------------------------
+
+
+def _ragged_append_core(rings, heads, obs):
+    """Ragged twin of :func:`_append_core`, functional, with the imputation
+    mode chosen per job by ``obs["cen"]`` ((J,) bool): both rows are
+    computed (cheap elementwise work) and where-merged, so a mixed
+    plain/censored job set shares one launch.  Padded columns (mask True,
+    time 0) write 0.0, which the decision's column mask never reads.
+    Returns the new (rings, heads)."""
+    times, mask = obs["times"], obs["mask"]
+    cutoff_time = torch.amax(torch.where(mask, times, -math.inf),
+                             dim=-1)[:, None]
+    u = colwise_uniform(obs["key"], times.shape[-1])
+    crow = censoring.impute_censored_torch(times, mask, obs["mu"],
+                                           obs["std"], cutoff_time, u)
+    prow = torch.where(mask, times, cutoff_time)
+    row = torch.where(obs["cen"][:, None], crow, prow)
+    cap = rings.shape[1]
+    at = (torch.arange(cap, device=rings.device)[None, :]
+          == heads[:, None])
+    return (torch.where(at[:, :, None], row[:, None, :], rings),
+            (heads + 1) % cap)
+
+
+def _batched_observe_decide_ragged(params, rings, heads, obs, keys,
+                                   norm_scales, widths, los, *,
+                                   k_samples: int):
+    """J whole RAGGED controller iterations at once (the reference's
+    ``_ragged_observe_decide_core`` under ``jax.vmap``): the traced-mode
+    append (:func:`_ragged_append_core`), then the ragged decision
+    (``RuntimeModel._decide_core(width=...)``) on the updated rings.
+    Returns (rings, heads, cutoffs (J,), samples (J, K, n_pad), mu, std
+    (J, n_pad), iter (J,))."""
+    rings, heads = _ragged_append_core(rings, heads, obs)
+    out = RuntimeModel._decide_core(params, rings, heads, keys, norm_scales,
+                                    k_samples, los, width=widths)
+    return (rings, heads) + tuple(out)
+
+
+def _batched_decide_ragged(params, rings, heads, keys, norm_scales, widths,
+                           los, *, k_samples: int):
+    """Decide-only twin of :func:`_batched_observe_decide_ragged`: the
+    first post-seeding decision of a batch of jobs."""
+    return RuntimeModel._decide_core(params, rings, heads, keys, norm_scales,
+                                     k_samples, los, width=widths)
+
+
+def _prng_key_rows(seeds) -> np.ndarray:
+    """(J, 2) uint32 HOST array, row j bit-identical to
+    ``jax.random.PRNGKey(seeds[j])`` with x64 off: the seed's low 32 bits
+    after a zero high word.  Built on the host so the server's flush can
+    splice decide and impute keys into one packed upload."""
+    seeds = np.asarray(list(seeds), np.uint64)
+    out = np.zeros((seeds.shape[0], 2), np.uint32)
+    out[:, 1] = (seeds & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    return out
+
+
+def stacked_prng_keys(seeds, device=None) -> torch.Tensor:
+    """(J, 2) key stack (the twin's int64 words), row j equal to
+    ``random.PRNGKey(seeds[j])``: ONE upload instead of J."""
+    return torch.as_tensor(_prng_key_rows(seeds).astype(np.int64),
+                           device=device)
+
+
+def _batched_impute_keys(base_keys, steps):
+    """The folded keys of a stack: row j equals ``_impute_key(seed_j,
+    step_j)`` when ``base_keys[j] == PRNGKey(seed_j + 1_000_003)``
+    (``random.fold_in`` broadcasts a (J, 2) stack against (J,) data)."""
+    return R.fold_in(base_keys, steps)
 
 
 @dataclass

@@ -12,10 +12,13 @@ controller's fused decision (``controller._observe_decide_core`` →
 ``RuntimeModel._decide_core``) calls those, so the whole decision is one
 captured graph on the card with only the cutoff fetched to the host.
 The JAX twins sort with a bitonic network because XLA's CPU sort is slow;
-its values equal ``np.sort``'s, and so do ``torch.sort``'s.
+its values equal ``np.sort``'s, and so do ``torch.sort``'s.  The ragged
+twins (``cutoff_and_iter_ragged_torch``) decide a stack of jobs of mixed
+widths at once, for the multi-tenant parameter server (``repro_torch.ps``).
 """
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import numpy as np
@@ -112,4 +115,41 @@ def cutoff_and_iter_torch(samples: torch.Tensor, lo: int):
     c = _cutoff_from_sorted(s, lo)
     col = (c.to(torch.int64) - 1).reshape(1)
     pred_iter = torch.mean(torch.index_select(s, 1, col))
+    return c, pred_iter
+
+
+def _cutoff_from_sorted_ragged(s: torch.Tensor, lo: torch.Tensor,
+                               n_real: torch.Tensor) -> torch.Tensor:
+    """Throughput argmax over PRE-SORTED samples (..., K, n_pad) whose last
+    ``n_pad - n_real`` columns are +inf padding.
+
+    ``lo`` and ``n_real`` are int tensors of the leading shape (a job axis
+    (J,), or 0-d), so one captured graph serves every job width in a
+    ragged bucket.  For ``n_real == n_pad`` the masked argmax scans the
+    omega values ``_cutoff_from_sorted`` scans (padding contributes omega
+    = c / inf = 0 outside the mask), so full-width jobs keep the static
+    path's answer.
+    """
+    n = s.shape[-1]
+    cs = torch.arange(1, n + 1, dtype=s.dtype, device=s.device)
+    omega = torch.mean(cs / torch.clamp(s, min=OMEGA_FLOOR), dim=-2)
+    i = torch.arange(n, device=s.device)
+    valid = (i >= lo[..., None]) & (i < n_real[..., None])
+    c = torch.argmax(torch.where(valid, omega, -math.inf), dim=-1) + 1
+    return torch.minimum(c, n_real).to(torch.int32)
+
+
+def cutoff_and_iter_ragged_torch(samples: torch.Tensor, lo: torch.Tensor,
+                                 n_real: torch.Tensor):
+    """Ragged twin of ``cutoff_and_iter_torch``: samples (..., K, n_pad)
+    with +inf in the padded columns, per-job floors ``lo`` and real widths
+    ``n_real``.  ``torch.sort`` puts the +inf pads above every real value,
+    so the order statistics of the real workers land in columns
+    [0, n_real) exactly as in a width-n_real sort (the reference's bitonic
+    network gives the same values)."""
+    s = torch.sort(samples, dim=-1).values
+    c = _cutoff_from_sorted_ragged(s, lo, n_real)
+    col = (c.to(torch.int64) - 1)[..., None, None].expand(
+        s.shape[:-1] + (1,))
+    pred_iter = torch.mean(torch.gather(s, -1, col)[..., 0], dim=-1)
     return c, pred_iter

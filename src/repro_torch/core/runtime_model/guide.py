@@ -39,8 +39,9 @@ def guide_init(key, n_workers: int, z_dim: int = 32, hidden: int = 64):
 
 
 def _rnn_sweep(p, xs):
-    """xs: (T, B, n) -> hidden states (T, B, hidden), ReLU RNN."""
-    h = xs.new_zeros((xs.shape[1], p["wh"].shape[0]))
+    """xs: (T, ..., B, n) -> hidden states (T, ..., B, hidden), ReLU RNN
+    (a job axis before B meets stacked (J, n, hidden) weights)."""
+    h = xs.new_zeros(xs.shape[1:-1] + (p["wh"].shape[-1],))
     hs = []
     for x in xs:
         h = _RELU(x @ p["wx"] + h @ p["wh"] + p["b"])
@@ -49,9 +50,9 @@ def _rnn_sweep(p, xs):
 
 
 def _shifted_sweeps(guide_params, xt):
-    """Both RNN sweeps over xt (T, B, n), shifted one step so that
+    """Both RNN sweeps over xt (T, ..., B, n), shifted one step so that
     ``h_left[t]`` summarizes x_{<t} and ``h_right[t]`` summarizes x_{>t};
-    returns (h_left, h_right), each (T, B, hidden)."""
+    returns (h_left, h_right), each (T, ..., B, hidden)."""
     h_left_all = _rnn_sweep(guide_params["rnn_left"], xt)
     h_right_all = _rnn_sweep(guide_params["rnn_right"],
                              torch.flip(xt, (0,))).flip(0)
@@ -104,23 +105,28 @@ def guide_sample_broadcast(guide_params, x_window, key, k_samples: int):
     to ``guide_sample``.
 
     x_window: (T, n) normalized runtimes.  Returns z_T: (k_samples, zd).
+    A job stack (J, T, n) with keys (J, 2) and params laid out by
+    ``api.batched_layout`` gives (J, k_samples, zd), row j job j's.
     """
-    T, n = x_window.shape
-    h_left, h_right = _shifted_sweeps(guide_params, x_window[:, None, :])
-    h_sum = h_left + h_right                       # (T, 1, hidden)
+    T = x_window.shape[-2]
+    lead = x_window.shape[:-2]
+    xt = x_window.movedim(-2, 0)[..., None, :]     # (T, ..., 1, n)
+    h_left, h_right = _shifted_sweeps(guide_params, xt)
+    h_sum = h_left + h_right                       # (T, ..., 1, hidden)
 
-    zd = guide_params["mu"][0]["w"].shape[1]
-    eps = R.normal(R.split(key, T), (k_samples, zd))
+    zd = guide_params["mu"][0]["w"].shape[-1]
+    # (..., T, K, zd) -> (T, ..., K, zd)
+    eps = R.normal(R.split(key, T), (k_samples, zd)).movedim(-3, 0)
 
     wz, bz = guide_params["z_proj"][0]["w"], guide_params["z_proj"][0]["b"]
     wm, bm = guide_params["mu"][0]["w"], guide_params["mu"][0]["b"]
     ws, bs = guide_params["std"][0]["w"], guide_params["std"][0]["b"]
-    w_cat = torch.cat([wm, wm @ ws], dim=1)        # (hidden, 2*zd)
-    b_cat = torch.cat([bm, bm @ ws + bs])
+    w_cat = torch.cat([wm, wm @ ws], dim=-1)       # (hidden, 2*zd)
+    b_cat = torch.cat([bm, bm @ ws + bs], dim=-1)
 
-    z = x_window.new_zeros((k_samples, zd))
+    z = x_window.new_zeros(lead + (k_samples, zd))
     for t in range(T):
         h_out = (_TANH(z @ wz + bz) + h_sum[t]) / 3.0
         ms = h_out @ w_cat + b_cat                 # [mu | std_pre]
-        z = ms[:, :zd] + (_SOFTPLUS(ms[:, zd:]) + 1e-3) * eps[t]
+        z = ms[..., :zd] + (_SOFTPLUS(ms[..., zd:]) + 1e-3) * eps[t]
     return z

@@ -29,6 +29,7 @@ not ported yet (ROADMAP A.14).
 """
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional
 
@@ -124,7 +125,11 @@ def make_train_step(cfg, optimizer: optim.Optimizer, *,
     gradients (``torch.round`` rounds half to even, as ``jnp.round``
     does), normalized by ``max(f, 1/grad_accum)`` times its full token
     count, and writes their f32 sum into row w of one preallocated (W, N)
-    buffer (``kernels.ops.WorkerGrads``, built at the first step).  ONE
+    buffer (``kernels.ops.WorkerGrads``, built at the first step at W).
+    Trainers sharing one step at different widths (the multi-tenant jobs
+    of ``launch.multi_job``) each register theirs (``train_step.hold``) and
+    keep one buffer per width; a width no trainer holds any longer loses
+    its buffer before another is allocated.  ONE
     masked mean weighted by f then combines the rows: the JAX step's
     concatenate-then-combine result without the concatenation copy.  With
     a 0/1 vector every weight is exactly 1.0 or 0.0, and the weights and
@@ -155,6 +160,7 @@ def make_train_step(cfg, optimizer: optim.Optimizer, *,
             "dropped worker's gradient to buffer)")
     loss_fn = make_loss_fn(cfg, aux_coef)
     buffers: Dict[Any, ops.WorkerGrads] = {}
+    holders: Dict[int, int] = {}      # id(trainer) -> the width it steps at
 
     def normalizer_of(batch):
         w = batch.get("weights")
@@ -193,11 +199,28 @@ def make_train_step(cfg, optimizer: optim.Optimizer, *,
         return loss, {"ce": loss, "aux": aux / grad_accum}, rows
 
     def worker_buffer(params, W):
+        # a width that is neither this call's nor held by a trainer
+        # (``train_step.hold``) loses its buffer BEFORE a new one is
+        # allocated: a single job's resize frees the old width's buffer
+        # first, so the two never coexist, while jobs that share this step
+        # at different widths keep one buffer each
+        keep = set(holders.values()) | {W}
+        for k in [k for k in buffers if k[0] not in keep]:
+            del buffers[k]
         key = (W, tree.leaves(params)[0].device)
         if key not in buffers:
-            buffers.clear()   # a resize: the old width's buffer goes
             buffers[key] = ops.WorkerGrads(params, W)
         return buffers[key]
+
+    def hold(owner, W: int):
+        """Record that ``owner`` (a Trainer) steps at width ``W``: the
+        buffer of every width some live owner holds survives calls at
+        other widths.  An owner holds one width at a time; its hold goes
+        with it."""
+        key = id(owner)
+        if key not in holders:
+            weakref.finalize(owner, holders.pop, key, None)
+        holders[key] = int(W)
 
     def fold_stale(grads, stale_g, stale_w, c):
         """g = a (c / (c + w)) + b (w / (c + w)), as the JAX step."""
@@ -284,6 +307,8 @@ def make_train_step(cfg, optimizer: optim.Optimizer, *,
             metrics["stale"] = stale
         return new_state, metrics
 
+    train_step.hold = hold
+    train_step.buffers = buffers
     return train_step
 
 
@@ -344,9 +369,10 @@ class Trainer:
     worker set before each step (:meth:`resize`): the controller remaps
     its window (``core.controller.ElasticController`` also decides through
     its Elfving fallback until its DMM is refitted at the new width), and
-    the psum step's next call drops its (W, N) f32 worker buffer before it
-    allocates one of the new width (full-width qwen2-0.5b: 15.81 GB at
-    W = 8, 11.86 GB at W = 6), so the two never coexist.  A controller
+    the psum step's next call drops the (W, N) f32 worker buffer of the
+    old width (which the trainer no longer holds) before it allocates one
+    of the new width (full-width qwen2-0.5b: 15.81 GB at W = 8, 11.86 GB
+    at W = 6), so the two never coexist.  A controller
     that keeps no step of its own (``ElasticController``) has the
     trainer's step saved in the ``ctl`` group, as in the reference.
     ``obs`` raises until telemetry is ported (ROADMAP A.14).
@@ -544,9 +570,12 @@ class Trainer:
             verbose: bool = False):
         ckpt = (store.AsyncCheckpointer(self.ckpt_dir, self.keep)
                 if self.ckpt_dir else None)
+        hold = getattr(self.step_fn, "hold", None)
         for _ in range(n_steps):
             self._sync_membership()
             n = self.n_workers
+            if hold is not None and self.mask_agg == "psum":
+                hold(self, n)
             c = min(int(self.controller.predict_cutoff()), n)
             times = (self.timer.step() if self.timer is not None
                      else np.ones(n))
