@@ -1,7 +1,7 @@
 """Fault-tolerance walkthrough on the PyTorch port: crash/restart,
-permanent node failure and elastic resize.
+permanent node failure, elastic resize and detected failures.
 
-The port's counterpart of phases 1-4 of ``examples/fault_tolerance_demo.py``:
+The port's counterpart of ``examples/fault_tolerance_demo.py``:
 
 1. Train with async checkpointing.
 2. Simulate a crash; restart from the latest checkpoint (exact resume:
@@ -13,10 +13,11 @@ The port's counterpart of phases 1-4 of ``examples/fault_tolerance_demo.py``:
    trainer keeps stepping across both membership changes, the checkpoint
    records the degraded membership, and a restarted trainer resumes from
    the newest checkpoint.
-
-Phase 5 of the JAX demo (failures DETECTED by a heartbeat supervisor)
-needs the control plane and ``launch/supervised``, not ported yet
-(ROADMAP A.13); the demo stops before it.
+5. Failures DETECTED, not scripted: a heartbeat supervisor
+   (``controlplane``) sees a crash and a hang on an 8-worker run
+   (``launch.supervised.default_plan``), shrinks the membership the
+   trainer follows, and restarts both workers (one after a flaky
+   restart), all through ``run_supervised_trainer``.
 
 It runs on the card (flash attention and the fused AdamW through their
 Hopper kernels); the reduced config keeps qwen2-0.5b's head_dim of 64,
@@ -25,7 +26,8 @@ the smallest the flash kernel is built for.
   PYTHONPATH=src python examples/torch_fault_tolerance_demo.py
 
 ``main(device="cpu")`` runs the same phases on the CPU, through the
-kernels' plain versions; the step counts of phases 1-3 are arguments.
+kernels' plain versions; the step counts of phases 1-3 and 5 are
+arguments.
 """
 import dataclasses
 import os
@@ -37,8 +39,11 @@ from repro_torch import optim, resolve_device
 from repro_torch.checkpoint import store
 from repro_torch.cluster.simulator import ChurnEvent, ChurnSim, ClusterSim
 from repro_torch.configs.base import get_config
+from repro_torch.controlplane import drill_report
 from repro_torch.core.controller import ElfvingController
 from repro_torch.data.pipeline import SyntheticTokens
+from repro_torch.launch.supervised import (build_supervised, default_plan,
+                                           run_supervised_trainer)
 from repro_torch.launch.train import Trainer, make_train_step
 from repro_torch.models import model as M
 
@@ -77,11 +82,12 @@ def make_trainer(cfg, n_workers, timer, ckpt_dir, device):
 
 
 def main(device=None, train_steps: int = 30, resume_steps: int = 10,
-         failure_steps: int = 15):
-    """Phases 1-4; ``train_steps`` must be a multiple of the checkpoint
-    interval (10) for phase 2 to resume where phase 1 stopped, and
+         failure_steps: int = 15, supervised_steps: int = 36):
+    """Phases 1-5; ``train_steps`` must be a multiple of the checkpoint
+    interval (10) for phase 2 to resume where phase 1 stopped,
     ``failure_steps`` at least 10 (the worker dies at the phase's 6th
-    step, and the last 5 steps are checked)."""
+    step, and the last 5 steps are checked), and ``supervised_steps`` at
+    least 32 (the hung worker's second restart lands at tick 31)."""
     device = resolve_device(device)
     cfg = dataclasses.replace(get_config("qwen2-0.5b").reduced(),
                               head_dim=64)
@@ -136,12 +142,38 @@ def main(device=None, train_steps: int = 30, resume_steps: int = 10,
               f"n_workers {tr5.n_workers}")
         tr5.run(5, verbose=True)
 
-    print("\n=== phase 5 (failures detected by heartbeats) needs the "
-          "control plane, not ported yet (ROADMAP A.13) ===")
-    print("\nphases 1-4 OK")
+    print("\n=== phase 5: detected (not scripted) failures, supervised ===")
+    overlay, sup, timer = build_supervised(8, default_plan(8), seed=4)
+    # every transient width (8 full, 7 during a detection window) must
+    # divide the global batch
+    data = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=32,
+                           global_batch=56, seed=0)
+    opt = optim.adamw(3e-3)
+    tr6 = Trainer(step_fn=make_train_step(cfg, opt), data=data,
+                  controller=ElfvingController(8, warmup=3), timer=timer,
+                  n_workers=8)
+
+    def init6():
+        params = M.init_model(cfg, torch.Generator().manual_seed(0),
+                              device=device)
+        return {"params": params, "opt": opt.init(params)}
+
+    tr6.restore_or_init(init6)
+    run_supervised_trainer(tr6, sup, supervised_steps)
+    rep = drill_report(sup.log.events)
+    for i in rep["incidents"]:
+        print(f"  {i['kind']} on worker {i['worker']} at tick "
+              f"{i['fault_tick']}: detected +{i['detection_ticks']} "
+              f"ticks, rejoined at {i['rejoin_tick']}")
+    widths6 = sorted({h["n"] for h in tr6.history})
+    print(f"widths ridden off detection alone: {widths6}")
+    assert rep["n_detected"] == 2 and rep["max_detection_ticks"] <= 5
+    assert widths6 == [7, 8] and tr6.history[-1]["n"] == 8
+    print("\nall phases OK")
     return {"phase1": tr.history, "phase2": tr2.history,
             "phase3": tr3.history, "phase4": tr4.history,
-            "restart": tr5.history}
+            "restart": tr5.history, "phase5": tr6.history,
+            "phase5_report": rep}
 
 
 if __name__ == "__main__":

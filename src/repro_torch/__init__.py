@@ -7,12 +7,14 @@ import both.  Entry points run on ``cuda`` unless the caller passes
 """
 from __future__ import annotations
 
-import torch
 
-
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None) -> "torch.device":
     """``None`` means the card; without a card that is an error, never a
     quiet move to the CPU."""
+    # torch is imported here, not with the package: the control plane's
+    # subprocess worker (numpy and stdlib) starts without it
+    import torch
+
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(

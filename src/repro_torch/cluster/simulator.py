@@ -1,12 +1,12 @@
 """Cluster run-time simulator (a copy of ``repro.cluster.simulator``).
 
 The port keeps its own copy of the numpy-only ``ClusterSim``, the
-``microbatch_progress`` query, the churn layer (``ChurnEvent``,
-``ChurnSim``, ``resize_schedule``), the multi-tenant partitioning
-(``partition_ids``, ``PartitionView``, ``PartitionedSim``) and the
-presets, so that it never imports the JAX package; the same seed gives the
-same runtimes and the same membership schedule.  The fault overlay
-(``OverlaySim``) comes with the control plane (ROADMAP A.13).
+``microbatch_progress`` query, the fault overlay (``OverlaySim``), the
+churn layer (``ChurnEvent``, ``ChurnSim``, ``resize_schedule``), the
+multi-tenant partitioning (``partition_ids``, ``PartitionView``,
+``PartitionedSim``) and the presets, so that it never imports the JAX
+package; the same seed gives the same runtimes and the same membership
+schedule.
 
 Generates joint worker runtimes with the phenomenology the paper observes on
 its real clusters (Fig. 2): machine-correlated slowdowns (workers share
@@ -125,6 +125,55 @@ def microbatch_progress(times, t: float, n_micro: int) -> np.ndarray:
     frac = np.clip(t / np.maximum(times, 1e-300), 0.0, 1.0)
     # the 1e-9 guard keeps an exact k/n_micro ratio from flooring to k-1
     return np.floor(frac * n_micro + 1e-9) / float(n_micro)
+
+
+# ---------------------------------------------------------------------------
+# Fault overlay: mutable per-worker stalls/slowdowns on any runtime source.
+# ---------------------------------------------------------------------------
+
+
+class OverlaySim:
+    """Mutable fault overlay on a full-width runtime source.
+
+    The control plane's live twin of the scripted :class:`ChurnSim`: a
+    supervisor (or a drill script) toggles per-worker ``stall`` flags
+    (crashed/hung workers never finish — their runtime becomes
+    :data:`STALL` seconds) and ``slow`` multipliers mid-run, while the
+    base simulator keeps generating the full-width joint phenomenology.
+    Untouched columns are bit-identical to the base run, so a detected
+    fault schedule can be replayed as a scripted one column-exactly.
+    """
+
+    STALL = 1e9
+
+    def __init__(self, base):
+        self.base = base
+        n = base.n_workers
+        self.mult = np.ones(n)
+        self.stalled = np.zeros(n, bool)
+
+    @property
+    def n_workers(self) -> int:
+        return self.base.n_workers
+
+    @property
+    def t(self) -> int:
+        return self.base.t
+
+    def stall(self, wid: int, on: bool = True):
+        self.stalled[int(wid)] = bool(on)
+
+    def slow(self, wid: int, factor: float = 1.0):
+        if factor <= 0:
+            raise ValueError(f"slowdown factor must be > 0, got {factor}")
+        self.mult[int(wid)] = float(factor)
+
+    def step(self) -> np.ndarray:
+        row = np.asarray(self.base.step(), np.float64) * self.mult
+        return np.where(self.stalled, self.STALL, row)
+
+    def run(self, n_steps: int) -> np.ndarray:
+        return np.stack([self.step() for _ in range(n_steps)])
 
 
 # ---------------------------------------------------------------------------

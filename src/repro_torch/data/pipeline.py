@@ -1,7 +1,8 @@
-"""Deterministic synthetic token data (a copy of ``repro.data.pipeline``).
+"""Deterministic synthetic data (a copy of ``repro.data.pipeline``).
 
-The port keeps its own copy of the numpy-only ``SyntheticTokens`` so that
-it never imports the JAX package; equal seeds give equal batches.
+The port keeps its own copies of the numpy-only ``SyntheticTokens`` and
+``SyntheticImages`` so that it never imports the JAX package; equal seeds
+give equal batches.
 
 The paper (§4.3) requires sampling mini-batches WITH REPLACEMENT rather than
 pre-partitioning data onto workers: under cutoff SGD a persistently-slow
@@ -14,7 +15,7 @@ elastic resizing deterministic.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -70,3 +71,41 @@ class SyntheticTokens:
 
     def state(self) -> dict:
         return {"seed": self.seed}
+
+
+@dataclass
+class SyntheticImages:
+    """Class-conditional Gaussian images (the MNIST stand-in: no dataset
+    is downloaded).  10 classes, 28x28, fixed class templates."""
+    n_classes: int = 10
+    side: int = 28
+    noise: float = 0.35
+    seed: int = 0
+    n_train: int = 60_000
+    n_valid: int = 10_000
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        self.templates = rng.normal(size=(self.n_classes, self.side,
+                                          self.side)).astype(np.float32)
+        # smooth the templates to make the task non-trivial but learnable
+        for _ in range(2):
+            t = self.templates
+            self.templates = (t + np.roll(t, 1, 1) + np.roll(t, -1, 1)
+                              + np.roll(t, 1, 2) + np.roll(t, -1, 2)) / 5.0
+
+    def _make(self, rng, n):
+        y = rng.integers(0, self.n_classes, size=n)
+        x = self.templates[y] + self.noise * rng.normal(
+            size=(n, self.side, self.side)).astype(np.float32)
+        return x.astype(np.float32), y.astype(np.int32)
+
+    def batch(self, step: int, batch_size: int,
+              worker: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
+        rng = np.random.default_rng(
+            (self.seed, step, 2**31 - 1 if worker is None else worker))
+        return self._make(rng, batch_size)
+
+    def valid_set(self) -> Tuple[np.ndarray, np.ndarray]:
+        rng = np.random.default_rng((self.seed, 10**9))
+        return self._make(rng, self.n_valid)

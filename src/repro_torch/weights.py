@@ -18,8 +18,9 @@ after ``jax.tree.map(np.asarray, params)`` and returns the dicts that
   ``bias``).
 
 ``state_from_jax`` carries a whole train state ``{"params", "opt"[,
-"ef"]}``, and ``runtime_model_from_jax`` a DMM ``RuntimeModel``'s params
-(dicts and lists of arrays, carried whole) with its ``norm_scale``.
+"ef"]}``, ``runtime_model_from_jax`` a DMM ``RuntimeModel``'s params
+(dicts and lists of arrays, carried whole) with its ``norm_scale``, and
+``cnn_from_jax`` the paper's CNN (convolutions HWIO -> OIHW).
 """
 from __future__ import annotations
 
@@ -100,3 +101,19 @@ def runtime_model_from_jax(params_np, norm_scale: float, *, lag: int = 20,
                       norm_scale=float(norm_scale), device=device)
     rm.params = _tree(params_np, rm.device)
     return rm
+
+
+def cnn_from_jax(params_np, device=None):
+    """``repro.models.cnn.cnn_init``'s params (numpy leaves) -> the port's
+    ``models.cnn`` params on ``device``: each convolution weight from HWIO
+    to OIHW; the fc weight keeps its (7*7*32, classes) layout, since the
+    port flattens its features in the reference's NHWC order."""
+    device = resolve_device(device)
+    out = {}
+    for name, p in params_np.items():
+        w = np.asarray(p["w"])
+        if w.ndim == 4:
+            w = np.ascontiguousarray(w.transpose(3, 2, 0, 1))
+        out[name] = {"w": _tensor(w, device),
+                     "b": _tensor(np.asarray(p["b"]), device)}
+    return out

@@ -1,8 +1,9 @@
 """The port's elastic entry points at a small size on the CPU:
 ``launch.elastic`` (the seeded 8 -> 6 -> 8 churn run, its warm mid-churn
 restart and the full-sync baseline) and
-``examples/torch_fault_tolerance_demo.py`` (phases 1-4); the options that
-wait for unported slices raise, and without ``device`` they need a card."""
+``examples/torch_fault_tolerance_demo.py`` (phases 1-5, phase 5 the
+heartbeat-detected failures); the options that wait for unported slices
+raise, and without ``device`` they need a card."""
 import importlib.util
 from pathlib import Path
 
@@ -53,17 +54,28 @@ def test_fault_tolerance_demo_runs_on_the_cpu(capsys):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     out = mod.main(device="cpu", train_steps=10, resume_steps=2,
-                   failure_steps=10)
+                   failure_steps=10, supervised_steps=32)
     assert [len(out[k]) for k in ("phase1", "phase2", "phase3", "phase4",
-                                  "restart")] == [10, 2, 10, 20, 5]
+                                  "restart", "phase5")] \
+        == [10, 2, 10, 20, 5, 32]
     assert out["phase2"][0]["step"] == 11           # resumed, not cold
     # the dead worker (runtime 1e6) is always cut once Elfving is warm
     assert all(h["c"] < 8 for h in out["phase3"][-5:])
     widths = [h["n"] for h in out["phase4"]]
     assert widths == [8] * 6 + [6] * 8 + [8] * 6
     assert [h["n"] for h in out["restart"]] == [6] * 5
+    # phase 5: the crash and the hang detected from missed heartbeats
+    # (deadline + 1 tick at most), the widths ridden off detection alone
+    rep = out.pop("phase5_report")
+    assert rep["n_detected"] == 2 and rep["max_detection_ticks"] <= 5
+    assert rep["failed_restarts"] == 1 and rep["evicted"] == []
+    assert [(i["worker"], i["detected"]) for i in rep["incidents"]] \
+        == [(7, True), (6, True)]
+    widths = [h["n"] for h in out["phase5"]]
+    assert sorted(set(widths)) == [7, 8] and widths[-1] == 8
     for hist in out.values():
         assert np.all(np.isfinite([h["loss"] for h in hist]))
     text = capsys.readouterr().out
     assert "step-10 checkpoint membership: n=6" in text
-    assert "ROADMAP A.13" in text and "phases 1-4 OK" in text
+    assert "widths ridden off detection alone: [7, 8]" in text
+    assert "all phases OK" in text

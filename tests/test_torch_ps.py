@@ -13,6 +13,8 @@ Held on the CPU, with the JAX-fitted DMMs carried across by
     16/10/6 bucket and a capacity-2 schedule, 40 ticks: identical cutoff
     sequences, windows within rtol = atol = 1e-4, one launch a bucket a
     tick; J = 1 at n = 158 against the port's own ``CutoffController``;
+  * C.12: where a server's window leaves its controller's (imputed
+    entries only, in both packages) and why (the f32 imputation's tail);
   * the reference's server contracts (tests/test_ps_server.py) on the
     port, and the schedulers and ``PartitionedSim`` against the copies'
     originals.
@@ -35,6 +37,7 @@ from repro.ps import scheduler as jsched
 from repro_torch import weights
 from repro_torch.cluster import simulator as tsim
 from repro_torch.core import controller as tctl
+from repro_torch.core.cutoff import censoring as tcen
 from repro_torch.core.runtime_model import api as tapi
 from repro_torch.core.runtime_model.api import RuntimeModel as TRM
 from repro_torch.ps import PSServer, make_scheduler
@@ -316,6 +319,84 @@ def test_psserver_j1_158_matches_the_port_controller():
     assert censored >= 50 and len(set(cutoffs)) > 1
     np.testing.assert_allclose(h.window_array(), ref.window_array(),
                                rtol=WINDOW_TOL, atol=WINDOW_TOL)
+
+
+# C.12: the server's window beside a looped controller's, entry by entry.
+# Observed entries are the step's runtimes copied in; an imputed entry is
+# a truncated-normal inverse-CDF draw, which f32 quantizes deep in the
+# tail.  chip_smoke.py holds the card's server to SERVER_WINDOW_TOL, the
+# reference's 1e-4 (WINDOW_TOL here), which the card meets since the
+# controller divides its ring by a tensor scale as the server does;
+# scripts/torch_c12_stages.py replays both decisions stage by stage.
+
+
+def _window_gap(ctl, h, srv, sim, steps=100):
+    """Drive a controller and a J = 1 server job in lockstep (the
+    reference's test_psserver_j1_identical_cutoffs_158 loop); return
+    |window difference| and the imputed entries of the final window."""
+    masks = [np.ones(ctl.n, bool)] * (ctl.model.lag + 1)   # seeded rows
+    for step in range(steps):
+        c = ctl.predict_cutoff()
+        assert h.predict_cutoff() == c, step
+        t = sim.step()
+        mask = t <= order_stats.iter_time(t, c) + 1e-12
+        ctl.observe(t, mask)
+        h.observe(t, mask)
+        srv.flush()
+        masks = masks[1:] + [mask]
+    return (np.abs(h.window_array() - ctl.window_array()),
+            ~np.stack(masks))
+
+
+def test_server_window_drift_lies_in_imputed_entries():
+    """Over the reference test's 100 paper_cluster_158 ticks (its fitted
+    DMM, carried across): the port's CPU server against the port's CPU
+    controller, and the reference's server against its controller.
+    Every entry that differs by more than 1e-4 in either pair is an
+    imputed one, observed entries are equal, and the port's server equals
+    its controller (on the CPU both divide by the scale truly; so does
+    the card since C.12's repair)."""
+    trace = jsim.paper_cluster_158(seed=0).run(60)
+    rm = JRM(n_workers=158, lag=20).init(0)
+    rm.fit(trace, steps=60, batch=8, seed=0)
+    trm = _port(rm)
+    gaps = {}
+    for name, ctl_cls, srv_cls, model in (
+            ("reference", jctl.CutoffController, JPSServer, rm),
+            ("port", tctl.CutoffController, PSServer, trm)):
+        ctl = ctl_cls(model, k_samples=32, seed=0)
+        ctl.seed_window(trace)
+        srv = srv_cls()
+        h = srv.admit("job0", model, window=trace, k_samples=32, seed=0)
+        gaps[name] = _window_gap(ctl, h, srv, jsim.paper_cluster_158(seed=7))
+    for name, (d, imputed) in gaps.items():
+        assert imputed.any() and (~imputed).any(), name
+        assert np.all(d[~imputed] == 0.0), name
+        assert not np.any((d > 1e-4) & ~imputed), name
+    d, _ = gaps["port"]
+    assert np.all(d <= WINDOW_TOL) and np.all(d == 0.0)
+
+
+@pytest.mark.parametrize("depth", [4.0, 4.5])
+def test_one_ulp_of_the_mean_moves_a_deep_tail_imputation(depth):
+    """The cause of C.12: left-truncated ``depth`` sigmas above the mean,
+    the f32 imputation's CDF value sits within ~1e-5 of 1, where its
+    spacing is 6e-8, so a one-ulp step of the predictive mean can flip it
+    and move the draw by thousands of the mean's ulps; the f64 twin moves
+    with the mean."""
+    n = 4000
+    bits = np.float32(1.0).view(np.int32) + np.arange(n, dtype=np.int32)
+    mu = bits.view(np.float32)
+    sigma = np.full(n, 0.3, np.float32)
+    lower = np.full(n, 1.0 + depth * 0.3, np.float32)
+    u = np.full(n, 0.5, np.float32)
+    x32 = tcen.truncated_normal_sample_torch(
+        *(torch.from_numpy(a) for a in (mu, sigma, lower, u))).numpy()
+    x64 = tcen.truncated_normal_sample(mu, sigma, lower, u=u)
+    step = np.diff(mu.astype(np.float64))
+    assert np.max(np.abs(np.diff(x32)) / step) > 1000
+    assert np.max(np.abs(np.diff(x32))) > 1e-4
+    assert np.max(np.abs(np.diff(x64)) / step) < 2
 
 
 def test_psserver_deterministic(fitted_16):
