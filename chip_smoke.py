@@ -84,6 +84,22 @@ Phases, one JSON line each; any failure exits non-zero:
                  clock of train), wall ms, predict_cutoff µs and the
                  decision's device µs; then 6 more steps alternating
                  first-k and the DMM, wall ms each (train_dmm_ab)
+  obs            telemetry (repro_torch.obs) on the paths above, each held
+                 against its bare twin: train_dmm's setup and model for 6
+                 steps drained every 3, bare, with an ObsRun writing its
+                 streams and with a synchronous peek at every decision:
+                 losses and cutoffs equal, every decision scored from its
+                 own samples (pred_iter equal to the peek's), the
+                 synchronizing calls between drains (sync debug mode
+                 "warn") equal, the launches asserted; PSServer J = 3 (K
+                 16, train_dmm's model) on against off, then the host µs
+                 of ps.flush and ps.dispatch (its wait and launch) at J =
+                 1, 3, 8 (K 64), idle and beside looped controllers; the
+                 supervised storm on against off and supervisor.tick's
+                 µs; a short full-width request served on against off;
+                 step wall bare against obs (supervised's small config and
+                 full width), ring push, drain and span µs; the streams
+                 rendered by python -m repro_torch.obs (and --chrome)
   train_policies the same full-width psum setup under the other straggler
                  policies, reusing train_dmm's fitted model: stale reuse
                  (StaleReuseController over the DMM, decay 0.5, 5 steps
@@ -1427,6 +1443,442 @@ def phase_train_dmm(torch, cfg, params_f32, firstk_clocks):
     del tr, params, ctl
     torch.cuda.empty_cache()
     return totals, rm
+
+
+# ---------------------------------------------------------------------------
+# Telemetry (repro_torch.obs) attached to the full-width DMM training, the
+# multi-tenant server, the supervisor and serving: no kernel of its own;
+# the training path runs flash_attention, masked_grad_agg and fused_adam.
+# ---------------------------------------------------------------------------
+
+OBS_STEPS, OBS_EVERY = 6, 3    # two drains of three decisions each
+OBS_PS_TICKS, OBS_PS_WARM = 25, 5
+OBS_PS_J = (1, 3, 8)           # the flush breakdown's job counts (K 64)
+
+
+def _is_sync(w):
+    return "synchroniz" in str(w.message)
+
+
+class _Stamped:
+    """A timer that stamps the host clock at each step's draw (one a
+    step): the gaps are the step walls, warm-up step excluded."""
+
+    def __init__(self, inner):
+        self.inner, self.stamps = inner, []
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def step(self):
+        self.stamps.append(time.perf_counter())
+        return self.inner.step()
+
+
+def _obs_train(torch, cfg, params_f32, rm, trace, obs=None, wrap=None):
+    """train_dmm's setup (full width, bf16, CutoffController(rm, 48)
+    seeded with ``trace``, psum, fused AdamW, ClusterSim seed 7) with
+    drains every OBS_EVERY steps, run OBS_STEPS steps in one ``run`` with
+    the sync debug mode at "warn".  ``obs`` is attached and the controller
+    wrapped for it (``wrap``, when given, goes between the two).  Returns
+    the history, the controller wrapper, the run's wall seconds with the
+    gaps between step starts (ms), where the steps made synchronizing
+    calls outside the drains (file:line of each) and how many each drain
+    made."""
+    import warnings
+
+    from repro_torch.cluster.simulator import ClusterSim
+    from repro_torch.core.controller import CutoffController
+
+    ctl = CutoffController(rm, k_samples=48)
+    ctl.seed_window(trace)
+    inner = wrap(ctl) if wrap is not None else ctl
+    params = cast(params_f32, "cuda", torch.bfloat16)
+    tr, _ = _train_setup(
+        torch, cfg, params, n_workers=8, seq=128, batch=16,
+        controller=obs.wrap(inner, policy="dmm") if obs else inner,
+        timer=_Stamped(ClusterSim(n_workers=8, n_nodes=2, seed=7)))
+    tr.metrics_every, tr.obs, tr.name = OBS_EVERY, obs, "dmm"
+    drain, in_drains, drain_idx = tr._drain_metrics, [], set()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+
+        def counted():
+            k = len(caught)
+            drain()
+            in_drains.append(sum(map(_is_sync, caught[k:])))
+            drain_idx.update(range(k, len(caught)))
+
+        tr._drain_metrics = counted
+        torch.cuda.set_sync_debug_mode("warn")
+        t0 = time.perf_counter()
+        try:
+            tr.run(OBS_STEPS)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            del tr._drain_metrics
+        wall = time.perf_counter() - t0
+    syncs = [f"{Path(w.filename).name}:{w.lineno}"
+             for i, w in enumerate(caught)
+             if _is_sync(w) and i not in drain_idx]
+    hist, step_ms = tr.history, np.diff(tr.timer.stamps) * 1e3
+    del tr, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return hist, inner, (wall, step_ms), syncs, in_drains
+
+
+def _obs_ps(torch, rm, J, k_samples, obs=None, looped=False):
+    """J jobs on train_dmm's width-8 model in one PSServer bucket
+    (windows ClusterSim(8, 2 nodes, seed 30 + j), seeds 7 j), OBS_PS_TICKS
+    ticks of the tick protocol (prefetch, predict, observe, flush).
+    ``looped``: after each flush J looped CutoffControllers decide, as
+    in ps_timing, so the next tick's launches meet a busy device.
+    Returns the cutoff sequences, the final windows and, inside each
+    flush, the host µs of the bucket's wait for its last launch and of
+    its launch (upload, replay, fetch)."""
+    from repro_torch.cluster.simulator import ClusterSim
+    from repro_torch.core.controller import CutoffController
+    from repro_torch.core.cutoff import order_stats
+    from repro_torch.ps import PSServer
+
+    srv = PSServer(obs=obs)
+    ctls, loops = [], []
+    for j in range(J):
+        window = ClusterSim(n_workers=8, n_nodes=2, seed=30 + j).run(40)
+        h = srv.admit(f"job{j}", rm, window=window, k_samples=k_samples,
+                      seed=7 * j)
+        ctls.append(obs.wrap(h, policy=f"job{j}") if obs else h)
+        if looped:
+            loops.append(CutoffController(rm, k_samples=k_samples,
+                                          seed=7 * j))
+            loops[-1].seed_window(window)
+    b = next(iter(srv._buckets.values()))
+    # host µs a flush spends in the bucket's waits and launches, summed
+    # over the flush (its first launch captures, and the capture waits)
+    parts, flushing = {"wait": [], "launch": []}, [False]
+
+    def timed(name, fn):
+        def run(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            if flushing[0]:
+                parts[name][-1] += (time.perf_counter() - t0) * 1e6
+            return out
+        return run
+
+    b.wait, b.launch = timed("wait", b.wait), timed("launch", b.launch)
+    sims = [ClusterSim(n_workers=8, n_nodes=2, seed=50 + j)
+            for j in range(J)]
+    seqs = [[] for _ in range(J)]
+    for _ in range(OBS_PS_TICKS):
+        srv.prefetch()
+        for j, ctl in enumerate(ctls):
+            c = ctl.predict_cutoff()
+            t = sims[j].step()
+            ctl.observe(t, t <= order_stats.iter_time(t, c) + 1e-12)
+            seqs[j].append(int(c))
+        for v in parts.values():
+            v.append(0.0)
+        flushing[0] = True
+        srv.flush()
+        flushing[0] = False
+        for j, ctl in enumerate(loops):
+            c = ctl.predict_cutoff()
+            t = sims[j].step()
+            ctl.observe(t, t <= order_stats.iter_time(t, c) + 1e-12)
+    if obs is not None:
+        obs.drain()
+    windows = [srv.window_array(f"job{j}") for j in range(J)]
+    return seqs, windows, parts
+
+
+def _obs_small_cost(torch, obs_cls, steps=36, reps=2):
+    """Wall per step of supervised's small config (bench_tiny_config at
+    head_dim 64, f32, Elfving over 6 workers), bare against obs attached
+    (controller wrapped), in turns bare, obs, obs, bare."""
+    from repro_torch import optim
+    from repro_torch.cluster.simulator import paper_cluster_158
+    from repro_torch.core.controller import ElfvingController
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.launch import supervised as S
+    from repro_torch.launch.train import Trainer, make_train_step
+    from repro_torch.models import model as M
+
+    cfg = S.supervised_config()
+    opt = optim.adamw(3e-3)
+    step_fn = make_train_step(cfg, opt)
+
+    def run(with_obs, n):
+        obs = obs_cls() if with_obs else None
+        ctl = ElfvingController(SUP_WORKERS)
+        tr = Trainer(step_fn=step_fn, data=SyntheticTokens(
+            vocab_size=cfg.vocab_size, seq_len=8, global_batch=60, seed=0),
+            controller=obs.wrap(ctl, policy="elfving") if obs else ctl,
+            timer=paper_cluster_158(1, n_workers=SUP_WORKERS),
+            n_workers=SUP_WORKERS, obs=obs, name="small")
+        params = M.init_model(cfg, torch.Generator().manual_seed(0),
+                              device="cuda")
+        tr.restore_or_init(lambda: {"params": params,
+                                    "opt": opt.init(params)})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.run(n)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e6, tr.history
+
+    run(False, 5)                       # warm-up: allocator, cuBLAS
+    us = {"bare": [], "obs": []}
+    hists = {}
+    for with_obs in (False, True) * reps:
+        key = "obs" if with_obs else "bare"
+        step_us, hists[key] = run(with_obs, steps)
+        us[key].append(step_us)
+    same = [h["loss"] for h in hists["bare"]] == [h["loss"]
+                                                  for h in hists["obs"]]
+    return us, same
+
+
+def phase_obs(torch, cfg, params_f32, rm):
+    """Telemetry attached to the paths already on the card, each held
+    against its bare twin bit for bit:
+
+    * full-width qwen2-0.5b DMM training (train_dmm's setup and fitted
+      model): a checking run whose controller is peeked synchronously
+      (``.cpu()`` of the sample cloud) at every decision, then bare, then
+      with an ObsRun writing its four streams.  Losses and cutoffs equal;
+      every decision scored from its own samples (each recorded pred_iter
+      equals the peek's); the synchronizing calls between drains equal
+      with obs on and off; the kernel launches of the obs run;
+    * PSServer at J = 3 (K 16) obs on against off: cutoffs and windows
+      equal, ps.dispatch one level inside ps.flush, every record scored;
+      then the host µs of ps.flush and ps.dispatch at J = 1, 3, 8 (K 64),
+      the dispatch split into the bucket's wait and its launch, on an
+      idle device and with J looped controllers between ticks;
+    * the supervised storm obs on against off (losses, cutoffs, the drill
+      report equal) and supervisor.tick's µs from its spans;
+    * one short full-width request served obs on against off (ids equal);
+    * the cost: step wall bare against obs at supervised's small config
+      and at full width; ring push, drain and span µs;
+    * the artifacts rendered by ``python -m repro_torch.obs`` (and
+      ``--chrome``), the timeline summary on one line."""
+    import os
+    import tempfile
+
+    from repro_torch.cluster.simulator import ClusterSim
+    from repro_torch.core.controller import _PolicyWrapper
+    from repro_torch.kernels import build
+    from repro_torch.launch import supervised as S
+    from repro_torch.obs import ObsRun, report
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.serving.engine import ServeEngine
+
+    trace = ClusterSim(n_workers=8, n_nodes=2, seed=0).run(200)
+
+    class Peek(_PolicyWrapper):
+        """Checking run only: E[x_(c)] from a synchronous fetch of the
+        sample cloud at each decision (the scorer's formula)."""
+
+        def __init__(self, inner):
+            super().__init__(inner)
+            self.pred = []
+
+        def predict_cutoff(self):
+            c = self.inner.predict_cutoff()
+            s = self.inner.predicted_samples()
+            self.pred.append(None if s is None else float(np.sort(
+                s.cpu().numpy().astype(np.float64), axis=1)[:, c - 1]
+                .mean()))
+            return c
+
+    # -- full width: the checking run first (it also takes whatever a
+    # first run after train_dmm does once), then bare and obs -----------
+    chk_obs = ObsRun()
+    chk, peek, _, _, _ = _obs_train(torch, cfg, params_f32, rm, trace,
+                                    obs=chk_obs, wrap=Peek)
+    bare, _, bare_s, bare_syncs, bare_drains = _obs_train(
+        torch, cfg, params_f32, rm, trace)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_obs_") as d:
+        obs = ObsRun(os.path.join(d, "run"))
+        build.LAUNCHES.clear()
+        inst, _, obs_s, obs_syncs, obs_drains = _obs_train(
+            torch, cfg, params_f32, rm, trace, obs=obs)
+        launches = dict(build.LAUNCHES)
+        obs.close()
+        key = lambda h: [(r["c"], r["loss"]) for r in h]
+        check(key(inst) == key(bare) == key(chk),
+              f"obs: losses or cutoffs differ with obs on: bare "
+              f"{key(bare)}, obs {key(inst)}, checking {key(chk)}")
+        recs = obs.decisions.records
+        check(len(recs) == OBS_STEPS and all(
+            r["pred_iter"] is not None for r in recs),
+            f"obs: {len(recs)} decisions recorded, "
+            f"{sum(r['pred_iter'] is None for r in recs)} without samples")
+        got = [r["pred_iter"] for r in chk_obs.decisions.records]
+        check(got == peek.pred and [r["pred_iter"] for r in recs] == got,
+              f"obs: recorded pred_iter {got} (obs run "
+              f"{[r['pred_iter'] for r in recs]}) against the peeks "
+              f"{peek.pred}")
+        check(len(bare_drains) == len(obs_drains) >= 2,
+              f"obs: drains {bare_drains} bare, {obs_drains} obs")
+        check(obs_syncs == bare_syncs,
+              f"obs: synchronizing calls between drains with obs "
+              f"{obs_syncs}, bare {bare_syncs}")
+        want = {"flash_attention": cfg.n_layers * 8 * OBS_STEPS,
+                "masked_grad_agg": OBS_STEPS, "fused_adam": OBS_STEPS}
+        check(launches == want, f"obs run launched {launches}, want {want}")
+        spans = obs.trace.spans
+        step_us = [s["dur_us"] for s in spans if s["name"] == "trainer.step"]
+        emit("obs_train", arch=cfg.name, steps=OBS_STEPS,
+             metrics_every=OBS_EVERY, cutoffs=[r["c"] for r in inst],
+             losses_equal=True, decisions=len(recs),
+             pred_iter=[r["pred_iter"] for r in recs],
+             peek_pred_iter=peek.pred,
+             syncs_between_drains={"bare": len(bare_syncs),
+                                   "obs": len(obs_syncs)},
+             sync_sites=sorted(set(bare_syncs)),
+             syncs_in_drains={"bare": bare_drains, "obs": obs_drains},
+             run_seconds={"bare": bare_s[0], "obs": obs_s[0]},
+             step_gap_ms={"bare": bare_s[1].tolist(),
+                          "obs": obs_s[1].tolist()},
+             step_gap_ms_median={"bare": float(np.median(bare_s[1])),
+                                 "obs": float(np.median(obs_s[1]))},
+             trainer_step_span_us_median=float(np.median(step_us)),
+             launches=launches)
+        rows = report.timeline_summary(spans)
+        emit("obs_timeline", rows=rows)
+        t0 = time.perf_counter()
+        env = dict(os.environ, PYTHONPATH=str(
+            Path(__file__).resolve().parent / "src"))
+        cli = subprocess.run(
+            [sys.executable, "-m", "repro_torch.obs", os.path.join(d, "run"),
+             "--chrome", os.path.join(d, "trace.json")],
+            capture_output=True, text=True, env=env, timeout=120)
+        check(cli.returncode == 0 and "decision quality" in cli.stdout
+              and "trainer.step" in cli.stdout,
+              f"obs: the CLI failed ({cli.returncode}): {cli.stderr[-2000:]}")
+        with open(os.path.join(d, "trace.json")) as f:
+            n_chrome = len(json.load(f)["traceEvents"])
+        emit("obs_cli", seconds=time.perf_counter() - t0,
+             chrome_events=n_chrome, lines=len(cli.stdout.splitlines()))
+    del bare, inst, chk
+
+    # -- the multi-tenant server ----------------------------------------
+    bare_seqs, bare_w, _ = _obs_ps(torch, rm, 3, 16)
+    ps_obs = ObsRun()
+    inst_seqs, inst_w, _ = _obs_ps(torch, rm, 3, 16, obs=ps_obs)
+    check(inst_seqs == bare_seqs and all(
+        np.array_equal(a, b) for a, b in zip(inst_w, bare_w)),
+        "obs: the server's cutoffs or windows differ with obs on")
+    by = {}
+    for s in ps_obs.trace.spans:
+        by.setdefault(s["name"], []).append(s)
+    depth = by["ps.flush"][0]["depth"]
+    check(len(by["ps.flush"]) == len(by["ps.dispatch"]) == OBS_PS_TICKS
+          and all(s["depth"] == depth + 1 for s in by["ps.dispatch"]),
+          "obs: ps.dispatch is not one level inside every ps.flush")
+    recs = ps_obs.decisions.records
+    check(len(recs) == 3 * OBS_PS_TICKS
+          and all(r["pred_iter"] is not None for r in recs),
+          "obs: server decisions unscored")
+    breakdown = {}
+    for looped in (False, True):
+        for J in OBS_PS_J:
+            t_obs = ObsRun()
+            _, _, parts = _obs_ps(torch, rm, J, 64, obs=t_obs,
+                                  looped=looped)
+            flush = [s["dur_us"] for s in t_obs.trace.spans
+                     if s["name"] == "ps.flush"][OBS_PS_WARM:]
+            disp = [s["dur_us"] for s in t_obs.trace.spans
+                    if s["name"] == "ps.dispatch"][OBS_PS_WARM:]
+            wait = parts["wait"][OBS_PS_WARM:]
+            launch = parts["launch"][OBS_PS_WARM:]
+            med = lambda v: float(np.median(v))
+            breakdown[("looped_" if looped else "") + f"J{J}"] = {
+                "flush_us": med(flush), "dispatch_us": med(disp),
+                "flush_minus_dispatch_us": med(np.subtract(flush, disp)),
+                "wait_us": med(wait), "launch_us": med(launch),
+                "dispatch_rest_us": med(np.subtract(
+                    disp, np.add(wait, launch))),
+                "ticks": len(flush)}
+    emit("obs_ps", J=3, k_samples=16, ticks=OBS_PS_TICKS,
+         cutoffs_equal=True, windows_equal=True, decisions=len(recs),
+         breakdown_k64=breakdown)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the supervisor ---------------------------------------------------
+    sup_bare = S.run_supervised(steps=SUP_STEPS, n_workers=SUP_WORKERS,
+                                device="cuda", verbose=False)
+    sup_obs = ObsRun()
+    sup_inst = S.run_supervised(steps=SUP_STEPS, n_workers=SUP_WORKERS,
+                                device="cuda", verbose=False, obs=sup_obs)
+    sk = lambda out: [(h["n"], h["c"], h["loss"]) for h in out["history"]]
+    check(sk(sup_inst) == sk(sup_bare) and sup_inst["match"]
+          and sup_inst["report"] == sup_bare["report"],
+          "obs: the supervised storm differs with obs on")
+    tick_us = [s["dur_us"] for s in sup_obs.trace.spans
+               if s["name"] == "supervisor.tick"]
+    counters = sup_obs.metrics.summary()["counters"]
+    check(len(tick_us) == SUP_STEPS
+          and counters["supervisor.ticks"] == SUP_STEPS,
+          f"obs: {len(tick_us)} supervisor.tick spans, counters {counters}")
+    small_us, small_same = _obs_small_cost(torch, ObsRun)
+    check(small_same, "obs: the small config's losses differ with obs on")
+
+    # -- serving ----------------------------------------------------------
+    params = cast(params_f32, "cuda", torch.bfloat16)
+    engine = ServeEngine(cfg, params, device="cuda")
+    prompt = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, size=(1, 16), dtype=np.int32)
+    ids_bare = engine.generate(prompt, 8)
+    engine.obs = serve_obs = ObsRun()
+    ids_obs = engine.generate(prompt, 8)
+    names = [s["name"] for s in serve_obs.trace.spans]
+    check(np.array_equal(ids_bare, ids_obs)
+          and names == ["serve.prefill", "serve.decode", "serve.fetch"],
+          f"obs: served ids differ with obs on ({names})")
+    del engine, params
+    torch.cuda.empty_cache()
+
+    # -- the collectors' own costs ---------------------------------------
+    ring = MetricsRegistry().ring("cost", ("loss", "gnorm", "c",
+                                           "iter_time"))
+    loss = torch.ones((), device="cuda")
+    for _ in range(20):
+        ring.push((loss, loss, 5.0, 0.5))
+    ring.drain()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        ring.push((loss, loss, 5.0, 0.5))
+    push_us = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    drained = ring.drain()
+    drain_us = (time.perf_counter() - t0) * 1e6
+    check(len(drained["rows"]) == 200, "obs: ring drain lost rows")
+    tracer = Tracer()
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        with tracer.span("cost", track="t"):
+            pass
+    span_us = (time.perf_counter() - t0) / 1000 * 1e6
+    emit("obs_cost", small_config_step_us=small_us,
+         small_config_obs_over_bare=(float(np.median(small_us["obs"]))
+                                     / float(np.median(small_us["bare"]))),
+         full_width_step_gap_ms_median={
+             "bare": float(np.median(bare_s[1])),
+             "obs": float(np.median(obs_s[1]))},
+         full_width_obs_over_bare=(float(np.median(obs_s[1]))
+                                   / float(np.median(bare_s[1]))),
+         ring_push_us=push_us, ring_drain_200_rows_us=drain_us,
+         span_us=span_us, supervisor_tick_us_median=float(
+             np.median(tick_us)), supervisor_tick_us_max=float(
+             np.max(tick_us)), supervisor_counters=counters,
+         serve_spans=names)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3150,6 +3602,7 @@ def main() -> int:
     supervised_launches = timed(sec, "supervised", phase_supervised, torch)
     dmm_launches, rm = timed(sec, "train_dmm", phase_train_dmm, torch, cfg,
                              params_f32, firstk_clocks)
+    obs_launches = timed(sec, "obs", phase_obs, torch, cfg, params_f32, rm)
     policy_launches = timed(sec, "train_policies", phase_train_policies,
                             torch, cfg, params_f32, rm)
     del rm
@@ -3171,6 +3624,7 @@ def main() -> int:
         by_path = {"serve": serve_launches.get(name, 0),
                    "train_psum_5_steps": train_launches.get(name, 0),
                    "train_dmm": dmm_launches.get(name, 0),
+                   "obs": obs_launches.get(name, 0),
                    "train_policies": policy_launches.get(name, 0),
                    "train_elastic": elastic_launches.get(name, 0),
                    "train_multi_job": multi_launches.get(name, 0),

@@ -83,8 +83,7 @@ class EventLog:
     the bench latency math) must be able to rule out.
 
     ``KINDS`` is the kind registry ``emit`` validates against.
-    Subclasses with their own vocabulary (the reference's
-    ``obs.trace.ObsLog``; the port's telemetry is ROADMAP A.14) override
+    Subclasses with their own vocabulary (``obs.trace.ObsLog``) override
     it and inherit the seq/tick/JSONL machinery unchanged; the
     ``event-kind-drift`` lint rule walks every registry it knows about.
     """

@@ -43,6 +43,7 @@ import signal
 import subprocess
 import sys
 import time
+from contextlib import nullcontext
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -50,7 +51,6 @@ import numpy as np
 from repro_torch.controlplane.events import Event, EventLog
 from repro_torch.controlplane.faults import FaultInjector
 from repro_torch.controlplane.heartbeat import DEAD, HeartbeatMonitor
-from repro_torch.obs.metrics import MetricsRegistry
 
 #: how long ``ProcWorkerPool.await_beats`` waits for a worker's beat (a
 #: fresh incarnation's interpreter start included) before it fails
@@ -324,8 +324,13 @@ class Supervisor:
                  grace: int = 0, restart_base: int = 2,
                  restart_cap: int = 16, restart_jitter: int = 0,
                  flap_limit: int = 3, seed: int = 0,
-                 log: Optional[EventLog] = None, start_tick: int = 0):
+                 log: Optional[EventLog] = None, start_tick: int = 0,
+                 obs=None):
         self.pool = pool
+        # optional repro_torch.obs.ObsRun: tick spans are host
+        # perf_counter edges + host counters only (tick() is a lint hot
+        # root, and nothing here ever touches a device value)
+        self.obs = obs
         self.log = log if log is not None else EventLog()
         self.monitor = HeartbeatMonitor(
             pool.worker_ids(), suspect_after=suspect_after,
@@ -351,17 +356,26 @@ class Supervisor:
     def tick(self, tick: int) -> bool:
         """One control-plane step; returns True if membership changed."""
         tick = int(tick)
-        self.pool.pump(tick, self.monitor, self.log)
-        for wid, _old, new in self.monitor.advance(tick):
-            if new == DEAD:
-                self._on_dead(wid, tick)
-        self._advance_restarts(tick)
-        m = self.monitor.members()
-        changed = not np.array_equal(m, self._members)
-        if changed:
-            self.log.emit(tick, "membership", n=len(m),
-                          members=[int(w) for w in m])
-            self._members = m
+        span = (self.obs.trace.span("supervisor.tick", track="controlplane",
+                                    tick=tick)
+                if self.obs is not None else nullcontext())
+        with span:
+            self.pool.pump(tick, self.monitor, self.log)
+            for wid, _old, new in self.monitor.advance(tick):
+                if new == DEAD:
+                    self._on_dead(wid, tick)
+            self._advance_restarts(tick)
+            m = self.monitor.members()
+            changed = not np.array_equal(m, self._members)
+            if changed:
+                self.log.emit(tick, "membership", n=len(m),
+                              members=[int(w) for w in m])
+                self._members = m
+            if self.obs is not None:
+                self.obs.metrics.counter("supervisor.ticks").inc()
+                if changed:
+                    self.obs.metrics.counter(
+                        "supervisor.membership_changes").inc()
         return changed
 
     # -- restart policy -------------------------------------------------
@@ -488,6 +502,9 @@ def drill_report(events) -> dict:
             "recovery_ticks": (rej.tick - dead.tick)
             if (dead and rej) else None,
         })
+    # lazy import: obs.trace imports the control plane's event layer
+    from repro_torch.obs.metrics import MetricsRegistry
+
     reg = MetricsRegistry()
     det = reg.series("detection_ticks")
     rec = reg.series("recovery_ticks")

@@ -172,6 +172,30 @@ class ElfvingController(FullSyncController):
 # ---------------------------------------------------------------------------
 
 
+def snapshot(samples, stream=None):
+    """A copy of a decision's sample cloud that the caller owns, as
+    ``(copy, event)``; None when ``samples`` is.
+
+    The controllers write their sample cloud in place (the device state's
+    ``samples``, a bucket's output), so a handle to it is valid only until
+    the next decision.  On the card the copy is issued on ``stream``, the
+    stream whose next launch overwrites ``samples``: that launch is then
+    ordered after the copy.  ``event`` marks the copy's end for whoever
+    reads it on another stream (None off the card).  Host arrays are
+    copied too."""
+    if samples is None:
+        return None
+    if not isinstance(samples, torch.Tensor):
+        return np.array(samples, copy=True), None
+    if stream is None:
+        return samples.clone(), None
+    with torch.cuda.stream(stream):
+        copy = samples.clone()
+        event = torch.cuda.Event()
+        event.record(stream)
+    return copy, event
+
+
 class _PolicyWrapper:
     """Delegating base for straggler-policy wrappers: the inner controller
     owns the cutoff decision, the observe window, its step count and the
@@ -216,6 +240,9 @@ class _PolicyWrapper:
 
     def predicted_samples(self):
         return self._inner_call("predicted_samples")
+
+    def snapshot_samples(self):
+        return self._inner_call("snapshot_samples")
 
     def predicted_iter_time(self):
         return self._inner_call("predicted_iter_time")
@@ -789,6 +816,15 @@ class CutoffController:
             return None
         return self._pending_pred[2]
 
+    def snapshot_samples(self):
+        """:meth:`predicted_samples` copied into storage the caller owns
+        (:func:`snapshot`), on the card on the controller's stream,
+        where the next decision's replay rewrites the state's samples;
+        the controller's event covers the copy, so a resize waits for it
+        before it drops the state."""
+        with self._on_stream():
+            return snapshot(self.predicted_samples(), self._stream)
+
     def predicted_iter_time(self):
         """Posterior-predictive E[x_(c)] of the step just decided (raw
         seconds); None before the first warmed-up decision.  The device
@@ -1077,6 +1113,11 @@ class ElasticController:
     def predicted_samples(self):
         if self._dmm is not None:
             return self._dmm.predicted_samples()
+        return None
+
+    def snapshot_samples(self):
+        if self._dmm is not None:
+            return self._dmm.snapshot_samples()
         return None
 
     def observe(self, times, finished_mask=None):

@@ -21,9 +21,11 @@ device: the flash kernel is built for head_dims 64 and 128 (the JAX
 demo's tiny config has 16).  It runs on the card unless ``--device cpu``
 is given (no card and no ``--device``: an error).  The reference's
 ``--aot`` mode (compiles on degraded TPU meshes) waits for the mesh
-tooling, ROADMAP A.15; ``--obs-dir`` for telemetry, A.14.
+tooling, ROADMAP A.15.  ``--obs-dir`` writes the elastic trainer's
+telemetry streams (``repro_torch.obs``).
 
   PYTHONPATH=src python -m repro_torch.launch.elastic [--steps N] [--device cpu]
+      [--obs-dir DIR]
 """
 from __future__ import annotations
 
@@ -45,9 +47,16 @@ from repro_torch.core.runtime_model.api import RuntimeModel
 from repro_torch.data.pipeline import SyntheticTokens
 from repro_torch.launch.train import Trainer, clock_to_loss, make_train_step
 from repro_torch.models import model as M
+from repro_torch.obs import ObsRun
 
 
-def run_churn_demo(steps: int = 60, seed: int = 0, device=None) -> dict:
+def run_churn_demo(steps: int = 60, seed: int = 0, device=None,
+                   obs=None) -> dict:
+    """The seeded churn run (module docstring).  The elastic trainer
+    records to ``obs`` (or an in-memory ``ObsRun``) as job ``elastic``,
+    its controller wrapped for decision scoring; the full-sync baseline
+    gets its own in-memory run, so each step stream holds one trajectory
+    and ``clock_to_loss`` reads both."""
     device = resolve_device(device)
     cfg = dataclasses.replace(bench_tiny_config(), head_dim=64)
     n = 8
@@ -73,20 +82,24 @@ def run_churn_demo(steps: int = 60, seed: int = 0, device=None) -> dict:
 
     mid = (shrink_at + recover_at) // 2   # a ckpt lands mid-churn
 
-    def make_trainer(ctl, timer, ckpt=None):
+    def make_trainer(ctl, timer, ckpt=None, run_obs=None, name=None):
         data = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=8,
                                global_batch=24, seed=seed)
         tr = Trainer(step_fn=step_fn, data=data, controller=ctl, timer=timer,
                      n_workers=timer.n_workers, ckpt_dir=ckpt,
-                     ckpt_every=mid)
+                     ckpt_every=mid, obs=run_obs, name=name)
         return tr.restore_or_init(init_fn)
+
+    obs_el = obs if obs is not None else ObsRun()
+    obs_sync = ObsRun()
 
     with tempfile.TemporaryDirectory(prefix="repro_torch_elastic_") as ckpt:
         print(f"=== churn run: n {n} -> 6 at step {shrink_at}, "
               f"-> {n} at step {recover_at} ===")
         ctl = ElasticController(rm, k_samples=32, seed=seed, refit_steps=60)
         ctl.seed_window(trace[-40:])
-        tr = make_trainer(ctl, make_timer(), ckpt=ckpt)
+        tr = make_trainer(obs_el.wrap(ctl, policy="elastic"), make_timer(),
+                          ckpt=ckpt, run_obs=obs_el, name="elastic")
         tr.run(recover_at - 1)            # shrink fires; ckpt at width 6
 
         print("=== restart from the mid-churn checkpoint ===")
@@ -121,13 +134,13 @@ def run_churn_demo(steps: int = 60, seed: int = 0, device=None) -> dict:
         raise RuntimeError(f"churn did not fire: widths {widths}")
 
     print("=== full-sync baseline on the identical churn schedule ===")
-    sync = make_trainer(FullSyncController(n), make_timer())
+    sync = make_trainer(FullSyncController(n), make_timer(),
+                        run_obs=obs_sync, name="sync")
     sync.run(steps)
 
-    # the mean of the last 3 losses (the reference's obs ``final_loss``)
-    target = float(np.mean([h["loss"] for h in sync.history[-3:]]))
-    t_el = clock_to_loss(tr.history, target)
-    t_sync = clock_to_loss(sync.history, target)
+    target = sync.obs.steps.final_loss(window=3)
+    t_el = clock_to_loss(tr.obs.steps, target)
+    t_sync = clock_to_loss(sync.obs.steps, target)
     fmt = lambda v: "n/a" if v is None else f"{v:.1f}s"
     print(f"  simulated clock to sync's final loss: elastic {fmt(t_el)} "
           f"vs full-sync {fmt(t_sync)}")
@@ -147,17 +160,20 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="'cpu' for the plain path; default: the card")
     ap.add_argument("--obs-dir", default=None,
-                    help="telemetry streams (not ported: ROADMAP A.14)")
+                    help="write obs telemetry streams (spans/steps/"
+                         "decisions/metrics JSONL) under this directory")
     args = ap.parse_args(argv)
     if args.aot:
         raise NotImplementedError(
             "--aot compiles train_step on degraded TPU meshes; the mesh "
             "tooling is not ported yet (ROADMAP A.15)")
-    if args.obs_dir:
-        raise NotImplementedError(
-            "--obs-dir writes telemetry streams; telemetry is not ported "
-            "yet (ROADMAP A.14: obs/*)")
-    run_churn_demo(steps=args.steps, seed=args.seed, device=args.device)
+    obs = ObsRun(args.obs_dir) if args.obs_dir else None
+    run_churn_demo(steps=args.steps, seed=args.seed, device=args.device,
+                   obs=obs)
+    if obs is not None:
+        obs.close()
+        print(f"obs streams -> {args.obs_dir} "
+              f"(render: python -m repro_torch.obs {args.obs_dir})")
     return 0
 
 

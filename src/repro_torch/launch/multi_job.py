@@ -21,17 +21,19 @@ psum worker buffers are kept one per width in use
 (``launch.train.make_train_step``).  The default model is
 ``bench_tiny_config()`` with a head_dim of 64 (the flash kernel is built
 for head_dims 64 and 128), on the card unless ``device="cpu"``
-(``--device cpu``) is given.  ``--obs-dir`` (telemetry) waits for
-ROADMAP A.14.
+(``--device cpu``) is given.  ``--obs-dir`` writes the telemetry streams
+(``repro_torch.obs``; render them with ``python -m repro_torch.obs``).
 
   PYTHONPATH=src python -m repro_torch.launch.multi_job [--jobs 3]
       [--ticks 40] [--policy rr|priority|spsf] [--device cpu]
+      [--obs-dir DIR]
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import sys
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
@@ -46,6 +48,7 @@ from repro_torch.core.runtime_model.api import RuntimeModel
 from repro_torch.data.pipeline import SyntheticTokens
 from repro_torch.launch.train import Trainer, make_train_step
 from repro_torch.models import model as M
+from repro_torch.obs import ObsRun
 from repro_torch.ps import PSServer, make_scheduler
 from repro_torch.ps.scheduler import job_views
 
@@ -73,11 +76,9 @@ def build_multi_job(n_jobs: int = 3, n_per_job: int = 8, *,
 
     ``cfg`` (default: the tiny config at head_dim 64), ``seq_len`` and
     ``mask_agg`` shape the jobs' training; every job's params and its
-    DMM live on ``device`` (the card unless ``"cpu"``).  ``obs`` raises
-    until telemetry is ported (ROADMAP A.14)."""
-    if obs is not None:
-        raise NotImplementedError(
-            "telemetry is not ported yet (ROADMAP A.14: obs/*)")
+    DMM live on ``device`` (the card unless ``"cpu"``).  ``obs`` (a
+    :class:`repro_torch.obs.ObsRun`) instruments the server's flush and
+    every Trainer, and wraps each job's handle for decision scoring."""
     device = resolve_device(device)
     n_total = n_jobs * n_per_job
     cfg = cfg or dataclasses.replace(bench_tiny_config(), head_dim=64)
@@ -88,7 +89,7 @@ def build_multi_job(n_jobs: int = 3, n_per_job: int = 8, *,
     sim = PartitionedSim(base, partition_ids(n_total, n_jobs),
                          events=list(churn_events))
     server = PSServer(refit_steps=refit_steps, refit_fresh=refit_fresh,
-                      refit_async=refit_async)
+                      refit_async=refit_async, obs=obs)
     jobs: Dict[str, JobRun] = {}
     for j in range(n_jobs):
         job_id = f"job{j}"
@@ -108,9 +109,11 @@ def build_multi_job(n_jobs: int = 3, n_per_job: int = 8, *,
         view = sim.view(j)
         data = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=seq_len,
                                global_batch=global_batch, seed=seed + j)
-        tr = Trainer(step_fn=step_fn, data=data, controller=handle,
+        ctl = obs.wrap(handle, policy=job_id) if obs is not None else handle
+        tr = Trainer(step_fn=step_fn, data=data, controller=ctl,
                      timer=view, n_workers=n_per_job, mask_agg=mask_agg,
-                     members=ids, metrics_every=metrics_every, name=job_id)
+                     members=ids, metrics_every=metrics_every, obs=obs,
+                     name=job_id)
 
         def init_fn(jj=j):
             params = M.init_model(cfg, torch.Generator().manual_seed(
@@ -131,18 +134,24 @@ def run_ticks(server, jobs: Dict[str, JobRun], scheduler, ticks: int, *,
     schedule_log: List[List[str]] = []
     serviced = {job_id: 0 for job_id in jobs}
     d0 = server.dispatches
+    obs = getattr(server, "obs", None)
     for tick in range(ticks):
-        order = scheduler.order(job_views(server), capacity)
-        server.prefetch(order)
-        for job_id in order:
-            jobs[job_id].trainer.run(1)
-            jobs[job_id].serviced += 1
-            serviced[job_id] += 1
-        server.flush()
+        span = (obs.trace.span("multi_job.tick", track="driver", tick=tick)
+                if obs is not None else nullcontext())
+        with span:
+            order = scheduler.order(job_views(server), capacity)
+            server.prefetch(order)
+            for job_id in order:
+                jobs[job_id].trainer.run(1)
+                jobs[job_id].serviced += 1
+                serviced[job_id] += 1
+            server.flush()
         schedule_log.append(order)
         if verbose and (tick + 1) % 10 == 0:
             modes = {j.job_id: j.handle.mode for j in jobs.values()}
             print(f"  tick {tick + 1}: serviced={order} modes={modes}")
+    if obs is not None:
+        obs.drain()
     return {"schedule": schedule_log,
             "dispatches": server.dispatches - d0,
             "serviced": serviced}
@@ -161,12 +170,9 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="'cpu' for the plain path; default: the card")
     ap.add_argument("--obs-dir", default=None,
-                    help="telemetry streams (not ported: ROADMAP A.14)")
+                    help="write obs telemetry streams (spans/steps/"
+                         "decisions/metrics JSONL) under this directory")
     args = ap.parse_args(argv)
-    if args.obs_dir:
-        raise NotImplementedError(
-            "--obs-dir writes telemetry streams; telemetry is not ported "
-            "yet (ROADMAP A.14: obs/*)")
 
     kill_at = args.ticks // 3
     back_at = 2 * args.ticks // 3
@@ -176,12 +182,18 @@ def main(argv=None):
               ChurnEvent(step=back_at, restore=tuple(victim))]
     print(f"=== building {args.jobs} jobs x {args.workers_per_job} workers, "
           f"churn kills {victim} at tick {kill_at} ===")
+    obs = ObsRun(args.obs_dir) if args.obs_dir else None
     server, jobs, _ = build_multi_job(
         args.jobs, args.workers_per_job, seed=args.seed,
-        churn_events=events if args.jobs > 1 else (), device=args.device)
+        churn_events=events if args.jobs > 1 else (), device=args.device,
+        obs=obs)
     sched = make_scheduler(args.policy)
     out = run_ticks(server, jobs, sched, args.ticks,
                     capacity=args.capacity, verbose=True)
+    if obs is not None:
+        obs.close()
+        print(f"obs streams -> {args.obs_dir} "
+              f"(render: python -m repro_torch.obs {args.obs_dir})")
     print(f"=== {args.ticks} ticks, {out['dispatches']} fused dispatches "
           f"({out['dispatches'] / max(1, args.ticks):.2f}/tick) ===")
     for job_id, run in jobs.items():

@@ -23,9 +23,11 @@ The model is ``bench_tiny_config()`` with a head_dim of 64 (as in
 ``launch.elastic``), so on the card its attention runs through the Hopper
 flash kernel, forward and recompute backward.  It runs on the card unless
 ``--device cpu`` is given (no card and no ``--device``: an error).
-``--obs-dir`` (telemetry streams) waits for ROADMAP A.14.
+``--obs-dir`` writes the supervisor's and the supervised trainer's
+telemetry streams (``repro_torch.obs``).
 
   PYTHONPATH=src python -m repro_torch.launch.supervised [--steps N] [--device cpu]
+      [--obs-dir DIR]
 """
 from __future__ import annotations
 
@@ -50,6 +52,7 @@ from repro_torch.core.controller import ElfvingController
 from repro_torch.data.pipeline import SyntheticTokens
 from repro_torch.launch.train import Trainer, make_train_step
 from repro_torch.models import model as M
+from repro_torch.obs import ObsRun
 
 
 # ---------------------------------------------------------------------------
@@ -62,7 +65,7 @@ def build_supervised(n_workers: int, plan: Optional[FaultPlan] = None, *,
                      event_path: Optional[str] = None,
                      suspect_after: int = 2, dead_after: int = 4,
                      restart_base: int = 2, restart_cap: int = 16,
-                     flap_limit: int = 3):
+                     flap_limit: int = 3, obs=None):
     """The supervised stack minus the Trainer: (overlay, supervisor, timer).
 
     The overlay wraps a fresh paper-cluster sim; the injector (if a plan
@@ -77,7 +80,7 @@ def build_supervised(n_workers: int, plan: Optional[FaultPlan] = None, *,
     sup = Supervisor(pool, suspect_after=suspect_after,
                      dead_after=dead_after, restart_base=restart_base,
                      restart_cap=restart_cap, flap_limit=flap_limit,
-                     seed=seed, log=log)
+                     seed=seed, log=log, obs=obs)
     return overlay, sup, SupervisedTimer(overlay, sup)
 
 
@@ -230,10 +233,12 @@ def supervised_config():
 
 
 def run_supervised(steps: int = 60, seed: int = 0, n_workers: int = 6,
-                   device=None, verbose: bool = True) -> dict:
+                   device=None, verbose: bool = True, obs=None) -> dict:
     """The seeded fault storm, supervised then replayed (module docstring),
     both trainers from the seeded init of ``supervised_config`` on
-    ``device``."""
+    ``device``.  ``obs`` instruments the supervisor and the supervised
+    trainer, its controller wrapped for decision scoring (not the
+    replay)."""
     device = resolve_device(device)
     cfg = supervised_config()
     opt = optim.adamw(3e-3)
@@ -257,8 +262,12 @@ def run_supervised(steps: int = 60, seed: int = 0, n_workers: int = 6,
     if verbose:
         print(f"=== supervised run: {n_workers} workers, seeded storm "
               f"({len(plan.faults)} faults) on {device} ===")
-    overlay, sup, timer = build_supervised(n_workers, plan, seed=seed)
+    overlay, sup, timer = build_supervised(n_workers, plan, seed=seed,
+                                           obs=obs)
     tr = make_trainer(timer)
+    if obs is not None:
+        tr.obs = obs
+        tr.controller = obs.wrap(tr.controller, policy="elfving")
     run_supervised_trainer(tr, sup, steps)
     report = drill_report(sup.log.events)
     if verbose:
@@ -299,14 +308,16 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="'cpu' for the plain path; default: the card")
     ap.add_argument("--obs-dir", default=None,
-                    help="telemetry streams (not ported: ROADMAP A.14)")
+                    help="write obs telemetry streams (spans/steps/"
+                         "decisions/metrics JSONL) under this directory")
     args = ap.parse_args(argv)
-    if args.obs_dir:
-        raise NotImplementedError(
-            "--obs-dir writes telemetry streams; telemetry is not ported "
-            "yet (ROADMAP A.14: obs/*)")
+    obs = ObsRun(args.obs_dir) if args.obs_dir else None
     out = run_supervised(steps=args.steps, seed=args.seed,
-                         n_workers=args.workers, device=args.device)
+                         n_workers=args.workers, device=args.device, obs=obs)
+    if obs is not None:
+        obs.close()
+        print(f"obs streams -> {args.obs_dir} "
+              f"(render: python -m repro_torch.obs {args.obs_dir})")
     return 0 if out["match"] else 1
 
 

@@ -24,11 +24,12 @@ place, the port's counterpart of the JAX step's donated state.
 The ``Trainer`` is the host-side loop: controller -> bit array ->
 weights (or the bit array itself under ``mask_agg="psum"``), simulated
 (or measured) per-worker step times, the stale-gradient buffer, elastic
-resize, and checkpoint/restart through ``checkpoint.store``.  Telemetry is
-not ported yet (ROADMAP A.14).
+resize, checkpoint/restart through ``checkpoint.store``, and telemetry
+through an optional ``obs.ObsRun``.
 """
 from __future__ import annotations
 
+import contextlib
 import weakref
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional
@@ -375,7 +376,15 @@ class Trainer:
     at W = 6), so the two never coexist.  A controller
     that keeps no step of its own (``ElasticController``) has the
     trainer's step saved in the ``ctl`` group, as in the reference.
-    ``obs`` raises until telemetry is ported (ROADMAP A.14).
+
+    Telemetry (``obs``, a :class:`repro_torch.obs.ObsRun`): host spans
+    around the step (``trainer.step``) and its parts
+    (``controller.predict_cutoff``, ``train.dispatch``,
+    ``controller.observe``), one ring row a step (``trainer`` or
+    ``trainer[name]``: loss, gnorm, c, iter_time) and, at each metrics
+    drain, the records forwarded to ``obs.steps`` and ``obs.drain()``
+    inside an ``obs.drain`` span.  Nothing of it fetches inside a step,
+    and the run's losses and cutoffs are the bare run's, bit for bit.
     """
     step_fn: Callable
     data: Any
@@ -388,7 +397,7 @@ class Trainer:
     keep: int = 3
     metrics_every: int = 10
     obs: Any = None
-    name: Optional[str] = None     # job/run label (telemetry's, A.14)
+    name: Optional[str] = None     # job/run label of the obs streams
 
     state: Dict = None
     step: int = 0
@@ -398,11 +407,6 @@ class Trainer:
     _pending_metrics: list = field(default_factory=list, repr=False)
     # stale-reuse buffer: last step's (dropped-mean tree, count) on device
     _stale: Any = field(default=None, repr=False)
-
-    def __post_init__(self):
-        if self.obs is not None:
-            raise NotImplementedError(
-                "telemetry is not ported yet (ROADMAP A.14: obs/*)")
 
     @property
     def _stale_decay(self):
@@ -538,14 +542,23 @@ class Trainer:
         self.resize(w, col_map=col_map, members=ids)
 
     def _drain_metrics(self):
-        """Fetch every pending device-side loss into its history record:
-        one copy to the host for all of them."""
-        if not self._pending_metrics:
-            return
-        losses = torch.stack([rec["loss"] for rec in self._pending_metrics])
-        for rec, loss in zip(self._pending_metrics, losses.tolist()):
-            rec["loss"] = loss
-        self._pending_metrics.clear()
+        """Fetch every pending device-side loss into its history record
+        (one copy to the host for all of them) and forward the records to
+        the obs step stream; then the obs drain, inside its span."""
+        if self._pending_metrics:
+            losses = torch.stack([rec["loss"]
+                                  for rec in self._pending_metrics])
+            for rec, loss in zip(self._pending_metrics, losses.tolist()):
+                rec["loss"] = loss
+                if self.obs is not None:
+                    self.obs.steps.on_step(rec, job=self.name)
+            self._pending_metrics.clear()
+        if self.obs is not None:
+            # decision scoring and the device rings come back here, and
+            # ONLY here, never inside a step
+            with self.obs.trace.span("obs.drain", track="trainer",
+                                     step=self.step):
+                self.obs.drain()
 
     def _stale_batch(self, batch, decay: float):
         """Last step's dropped mean and its decayed weight into the batch
@@ -571,77 +584,104 @@ class Trainer:
         ckpt = (store.AsyncCheckpointer(self.ckpt_dir, self.keep)
                 if self.ckpt_dir else None)
         hold = getattr(self.step_fn, "hold", None)
+        tracer = self.obs.trace if self.obs is not None else None
+
+        def span(name, **attrs):
+            return (tracer.span(name, track="trainer", **attrs)
+                    if tracer is not None else contextlib.nullcontext())
+
+        ring = (self.obs.metrics.ring(
+            "trainer" if self.name is None else f"trainer[{self.name}]",
+            ("loss", "gnorm", "c", "iter_time"))
+            if self.obs is not None else None)
         for _ in range(n_steps):
-            self._sync_membership()
-            n = self.n_workers
-            if hold is not None and self.mask_agg == "psum":
-                hold(self, n)
-            c = min(int(self.controller.predict_cutoff()), n)
-            times = (self.timer.step() if self.timer is not None
-                     else np.ones(n))
-            # fastest c workers participate (the PS's bit array)
-            order = np.argsort(times)
-            mask = np.zeros(n, np.float32)
-            mask[order[:c]] = 1.0
-            iter_time = float(times[order[c - 1]])
-            # the controller sees the SAME worker set the aggregation used
-            finished = mask.astype(bool)
-
-            # anytime policy: stragglers contribute their completed
-            # fraction instead of a zeroed bit; finishers stay 1.0
-            contrib = mask
-            if hasattr(self.controller, "contribution"):
-                contrib = np.asarray(
-                    self.controller.contribution(times, c), np.float32)
-
-            batch = dict(self.data.batch(self.step))
-            if self.mask_agg == "psum":
-                batch["mask"] = contrib
-            else:
-                batch["weights"] = collectives.example_weights(
-                    contrib, batch["tokens"].shape[0])
-            decay = self._stale_decay
-            if decay is not None:
-                self._stale_batch(batch, decay)
-            # launch the train step FIRST, then the PS's observe, so the
-            # controller's work overlaps the device's
-            self.state, metrics = self.step_fn(self.state, batch)
-            if decay is not None:
-                if "stale" not in metrics:
-                    raise ValueError(
-                        "StaleReuseController needs a step_fn built with "
-                        "make_train_step(..., mask_agg='psum', "
-                        "stale_reuse=True): this one returned no "
-                        "metrics['stale'] buffer")
-                self._stale = metrics.pop("stale")
-            self.controller.observe(times, finished)
-            self.step += 1
-            self.sim_clock += iter_time
-            rec = {"step": self.step, "clock": self.sim_clock, "c": c,
-                   "n": n, "iter_time": iter_time,
-                   "loss": metrics["loss"]}  # device scalar; drained
-            self.history.append(rec)
-            self._pending_metrics.append(rec)
-            if self.metrics_every and self.step % self.metrics_every == 0:
-                self._drain_metrics()
-            if eval_fn and eval_every and self.step % eval_every == 0:
-                self._drain_metrics()
-                rec["eval"] = float(eval_fn(self.state))
-            if verbose and self.step % 20 == 0:
-                self._drain_metrics()
-                print(f"  step {self.step}: loss={rec['loss']:.4f} "
-                      f"c={c}/{n} t={iter_time:.3f}s "
-                      f"clock={self.sim_clock:.1f}s")
-            if ckpt and self.step % self.ckpt_every == 0:
-                groups = {"state": self.state,
-                          "meta": {"step": self.step,
-                                   "clock": self.sim_clock},
-                          "ctl": self._controller_ckpt()}
-                if decay is not None:
-                    groups["stale"] = {"g": self._stale[0],
-                                       "count": self._stale[1]}
-                ckpt.save(self.step, groups)
+            with span("trainer.step", step=self.step + 1, job=self.name):
+                self._step_once(ckpt, hold, span, ring, eval_fn,
+                                eval_every, verbose)
         self._drain_metrics()
         if ckpt:
             ckpt.wait()
         return self.history
+
+    def _step_once(self, ckpt, hold, span, ring, eval_fn, eval_every,
+                   verbose):
+        """One step of :meth:`run`: cutoff, bit array, train step, observe,
+        and the drains and checkpoints that fall on it."""
+        self._sync_membership()
+        n = self.n_workers
+        if hold is not None and self.mask_agg == "psum":
+            hold(self, n)
+        with span("controller.predict_cutoff"):
+            c = int(self.controller.predict_cutoff())
+        c = min(c, n)
+        times = (self.timer.step() if self.timer is not None
+                 else np.ones(n))
+        # fastest c workers participate (the PS's bit array)
+        order = np.argsort(times)
+        mask = np.zeros(n, np.float32)
+        mask[order[:c]] = 1.0
+        iter_time = float(times[order[c - 1]])
+        # the controller sees the SAME worker set the aggregation used
+        finished = mask.astype(bool)
+
+        # anytime policy: stragglers contribute their completed
+        # fraction instead of a zeroed bit; finishers stay 1.0
+        contrib = mask
+        if hasattr(self.controller, "contribution"):
+            contrib = np.asarray(
+                self.controller.contribution(times, c), np.float32)
+
+        batch = dict(self.data.batch(self.step))
+        if self.mask_agg == "psum":
+            batch["mask"] = contrib
+        else:
+            batch["weights"] = collectives.example_weights(
+                contrib, batch["tokens"].shape[0])
+        decay = self._stale_decay
+        if decay is not None:
+            self._stale_batch(batch, decay)
+        # launch the train step FIRST, then the PS's observe, so the
+        # controller's work overlaps the device's
+        with span("train.dispatch"):
+            self.state, metrics = self.step_fn(self.state, batch)
+        if decay is not None:
+            if "stale" not in metrics:
+                raise ValueError(
+                    "StaleReuseController needs a step_fn built with "
+                    "make_train_step(..., mask_agg='psum', "
+                    "stale_reuse=True): this one returned no "
+                    "metrics['stale'] buffer")
+            self._stale = metrics.pop("stale")
+        with span("controller.observe"):
+            self.controller.observe(times, finished)
+        self.step += 1
+        self.sim_clock += iter_time
+        rec = {"step": self.step, "clock": self.sim_clock, "c": c,
+               "n": n, "iter_time": iter_time,
+               "loss": metrics["loss"]}  # device scalar; drained
+        self.history.append(rec)
+        self._pending_metrics.append(rec)
+        if ring is not None:
+            # loss and gnorm are copied on the device, c and iter_time
+            # kept on the host: nothing is fetched
+            ring.push((metrics["loss"], metrics["gnorm"], float(c),
+                       iter_time))
+        if self.metrics_every and self.step % self.metrics_every == 0:
+            self._drain_metrics()
+        if eval_fn and eval_every and self.step % eval_every == 0:
+            self._drain_metrics()
+            rec["eval"] = float(eval_fn(self.state))
+        if verbose and self.step % 20 == 0:
+            self._drain_metrics()
+            print(f"  step {self.step}: loss={rec['loss']:.4f} "
+                  f"c={c}/{n} t={iter_time:.3f}s "
+                  f"clock={self.sim_clock:.1f}s")
+        if ckpt and self.step % self.ckpt_every == 0:
+            groups = {"state": self.state,
+                      "meta": {"step": self.step,
+                               "clock": self.sim_clock},
+                      "ctl": self._controller_ckpt()}
+            if decay is not None:
+                groups["stale"] = {"g": self._stale[0],
+                                   "count": self._stale[1]}
+            ckpt.save(self.step, groups)

@@ -457,7 +457,12 @@ class PSServer:
     ``flush`` is also called implicitly whenever a job with a queued
     observation is asked to predict, so a ``JobHandle`` behaves like a
     plain controller even without a tick loop calling ``flush``.
-    ``obs`` raises until telemetry is ported (ROADMAP A.14).
+
+    ``obs`` (a :class:`repro_torch.obs.ObsRun`): a ``ps.flush`` span
+    around each flush, a ``ps.dispatch`` span around each bucket's launch
+    inside it, a ``ps.refit`` span around a synchronous refit, and host
+    counters of refits started, failed and installed.  Spans and counters
+    are host bookkeeping only; the decisions are the bare server's.
     """
 
     def __init__(self, registry: Optional[JobRegistry] = None, *,
@@ -465,9 +470,7 @@ class PSServer:
                  refit_batch: int = 8, refit_fresh: int = 4,
                  refit_async: bool = False, fallback_warmup: int = 3,
                  refit_retries: int = 1, obs=None):
-        if obs is not None:
-            raise NotImplementedError(
-                "telemetry is not ported yet (ROADMAP A.14: obs/*)")
+        self.obs = obs
         self.registry = registry if registry is not None else JobRegistry()
         self.history = history
         self.refit_steps = refit_steps
@@ -798,6 +801,21 @@ class PSServer:
         Returns the launches issued."""
         if not self._queue:
             return 0
+        # spans stamp host perf_counter edges around the launches; their
+        # attributes are host ints already on the queue entries
+        tracer = self.obs.trace if self.obs is not None else None
+        fspan = (tracer.span("ps.flush", track="ps", tick=self.ticks,
+                             queued=len(self._queue))
+                 if tracer is not None else contextlib.nullcontext())
+        with fspan:
+            issued = self._launch_queue(tracer)
+        self.dispatches += issued
+        self.ticks += 1
+        return issued
+
+    def _launch_queue(self, tracer) -> int:
+        """:meth:`flush`'s body: the queue grouped by bucket, one packed
+        upload and one launch a bucket, each in a ``ps.dispatch`` span."""
         queue, self._queue = self._queue, []
         groups: Dict[tuple, list] = {}
         for e in queue:
@@ -806,29 +824,33 @@ class PSServer:
         for sig, entries in groups.items():
             b = self._buckets[sig]
             slots = [e["job"].slot for e in entries]
-            # one packed upload: [times, mask, mu, std] + keys/steps/cen
-            pack, keys, steps, cen = b.host_inp(slots)
-            for e, r in zip(entries, slots):
-                w = e["job"].width
-                pack[0, r, :w] = e["times"]
-                pack[1, r, :w] = e["mask"]
-                if e["cen"]:
-                    pack[2, r, :w] = e["pred"][0][:w]
-                    pack[3, r, :w] = e["pred"][1][:w]
-                steps[r] = e["istep"]
-                cen[r] = e["cen"]
-            keys[slots, :2] = C._prng_key_rows(
-                [e["job"].seed + e["dstep"] for e in entries])
-            keys[slots, 2:] = C._prng_key_rows(
-                [e["job"].seed + 1_000_003 for e in entries])
-            b.launch("observe")
+            gather = slots != list(range(len(b.jobs)))
+            dspan = (tracer.span("ps.dispatch", track="ps",
+                                 jobs=len(entries), n_pad=b.n_pad,
+                                 gather=gather)
+                     if tracer is not None else contextlib.nullcontext())
+            with dspan:
+                # one packed upload: [times, mask, mu, std] + keys/steps/cen
+                pack, keys, steps, cen = b.host_inp(slots)
+                for e, r in zip(entries, slots):
+                    w = e["job"].width
+                    pack[0, r, :w] = e["times"]
+                    pack[1, r, :w] = e["mask"]
+                    if e["cen"]:
+                        pack[2, r, :w] = e["pred"][0][:w]
+                        pack[3, r, :w] = e["pred"][1][:w]
+                    steps[r] = e["istep"]
+                    cen[r] = e["cen"]
+                keys[slots, :2] = C._prng_key_rows(
+                    [e["job"].seed + e["dstep"] for e in entries])
+                keys[slots, 2:] = C._prng_key_rows(
+                    [e["job"].seed + 1_000_003 for e in entries])
+                b.launch("observe")
             issued += 1
             out = {"event": b.event, "st": b.st, "samples": b.st["samples"]}
             for e, r in zip(entries, slots):
                 e["job"].pending = (e["dstep"], r, out)
                 e["job"].queued = False
-        self.dispatches += issued
-        self.ticks += 1
         return issued
 
     # -- diagnostics -----------------------------------------------------
@@ -856,6 +878,19 @@ class PSServer:
         if job.pending_pred is None or job.pending_pred[2] is None:
             return None
         return job.pending_pred[2][job.pending_pred[3], :, :job.width]
+
+    def snapshot_samples(self, job_id: str):
+        """:meth:`predicted_samples` copied into storage the caller owns
+        (``core.controller.snapshot``), on the card on the bucket's
+        stream, where the next launch rewrites the bucket's samples; the
+        bucket's event covers the copy, so a restack waits for it before
+        it drops the old block."""
+        samples = self.predicted_samples(job_id)
+        if samples is None:
+            return None
+        b = self._buckets[self.registry[job_id].bucket_sig]
+        with b.on_stream():
+            return C.snapshot(samples, b.stream)
 
     # -- elasticity ------------------------------------------------------
     def resize(self, job_id: str, n_workers: int, col_map=None,
@@ -972,12 +1007,19 @@ class PSServer:
         rows = np.stack(job.trace)
         n = job.width
         seed = job.seed + job.resize_count + 1000 * job.refit_failures
+        if self.obs is not None:
+            self.obs.metrics.counter("ps.refits_started").inc()
         if self.refit_async:
             job.refit_task = C._spawn_refit(
                 lambda: self._fit_model(job, rows, n, seed),
                 job.resize_count)
         else:
-            self._install_refit(job, self._fit_model(job, rows, n, seed))
+            span = (self.obs.trace.span("ps.refit", track="ps",
+                                        job=job.job_id, width=n)
+                    if self.obs is not None else contextlib.nullcontext())
+            with span:
+                model = self._fit_model(job, rows, n, seed)
+            self._install_refit(job, model)
 
     def _poll_refit(self, job: PSJob):
         if job.refit_task is None:
@@ -989,6 +1031,8 @@ class PSServer:
         job.refit_task = None
         if err is not None:
             job.refit_failures += 1
+            if self.obs is not None:
+                self.obs.metrics.counter("ps.refit_failures").inc()
             if job.refit_failures > self.refit_retries:
                 raise C.RefitError(
                     f"job {job.job_id!r}: DMM refit failed "
@@ -1010,6 +1054,10 @@ class PSServer:
         job.mode = "dmm"
         job.fallback = None
         self._place(job, np.stack(job.trace[-job.cap:]))
+        if self.obs is not None:
+            # a host counter only: _poll_refit reaches here from the hot
+            # predict path
+            self.obs.metrics.counter("ps.refits_installed").inc()
 
     def wait_refits(self, job_ids=None):
         """Block until every in-flight async refit for ``job_ids``
@@ -1089,6 +1137,9 @@ class JobHandle:
 
     def predicted_samples(self):
         return self.server.predicted_samples(self.job_id)
+
+    def snapshot_samples(self):
+        return self.server.snapshot_samples(self.job_id)
 
     def predicted_iter_time(self) -> Optional[float]:
         return self.server.predicted_iter_time(self.job_id)

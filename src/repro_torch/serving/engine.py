@@ -8,6 +8,7 @@ kernel and decode by a plain recurrence step, as JAX computes it.
 """
 from __future__ import annotations
 
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Optional
 
@@ -33,6 +34,10 @@ class ServeEngine:
     params: dict
     max_len: int = 512          # unused, as in JAX: caches grow to S + n_new
     device: Optional[str] = None  # None = the card; raises without one
+    # optional repro_torch.obs.ObsRun: prefill/decode/fetch spans stamp
+    # host perf_counter edges around the launches; they time the
+    # launches and never add a synchronize
+    obs: object = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -51,26 +56,38 @@ class ServeEngine:
         B, S = tokens.shape
         dev = self.device
         key = R.PRNGKey(seed, device=dev)
+        tracer = self.obs.trace if self.obs is not None else None
+
+        def span(name, **attrs):
+            return (tracer.span(name, track="serving", **attrs)
+                    if tracer is not None else nullcontext())
+
         with torch.inference_mode():
             toks = torch.as_tensor(tokens, dtype=torch.int64, device=dev)
             positions = torch.arange(S, device=dev).expand(B, S)
-            last_logits, caches = M.prefill(
-                self.cfg, self.params, {"tokens": toks, "positions": positions})
+            with span("serve.prefill", batch=B, seq=S):
+                last_logits, caches = M.prefill(
+                    self.cfg, self.params,
+                    {"tokens": toks, "positions": positions})
             caches = M.pad_caches(caches, S + n_new)
             out = []
             nxt = self._sample(last_logits, temperature, key)
-            for t in range(n_new):
-                # keep the loop sync-free: collect DEVICE tensors; ``pos``
-                # is a host int, so no launch waits on the card
-                out.append(nxt)
-                logits, caches = M.decode_step(self.cfg, self.params,
-                                               nxt[:, None], S + t, caches)
-                # greedy ids never read a key: split only when sampling
-                key, sub = R.split(key) if temperature > 0.0 else (key, None)
-                nxt = self._sample(logits[:, 0], temperature, sub)
-            # the ONE fetch: all n_new tokens come back in a single copy
-            # after the loop has been fully enqueued
-            ids = torch.stack(out, dim=1).cpu()
+            with span("serve.decode", batch=B, n_new=n_new):
+                for t in range(n_new):
+                    # keep the loop sync-free: collect DEVICE tensors;
+                    # ``pos`` is a host int, so no launch waits on the card
+                    out.append(nxt)
+                    logits, caches = M.decode_step(self.cfg, self.params,
+                                                   nxt[:, None], S + t,
+                                                   caches)
+                    # greedy ids never read a key: split only when sampling
+                    key, sub = (R.split(key) if temperature > 0.0
+                                else (key, None))
+                    nxt = self._sample(logits[:, 0], temperature, sub)
+            with span("serve.fetch", batch=B, n_new=n_new):
+                # the ONE fetch: all n_new tokens come back in a single
+                # copy after the loop has been fully enqueued
+                ids = torch.stack(out, dim=1).cpu()
         return ids.numpy().astype(np.int32)
 
     @staticmethod

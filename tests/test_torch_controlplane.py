@@ -318,10 +318,14 @@ def test_host_metrics_match_the_reference():
             reg.labels("evicted").add(w)
     a, b = (r.summary() for r in regs)
     assert a == b
-    with pytest.raises(NotImplementedError, match="A.14"):
-        regs[0].ring("loss", ("loss",))
-    with pytest.raises(NotImplementedError, match="A.14"):
-        regs[0].histogram("h", (1.0, 2.0))
+    # the device collectors are ported too (their payloads against the
+    # reference's: tests/test_torch_obs.py)
+    for reg in regs:
+        reg.ring("loss", ("loss",)).push((2.5,))
+        reg.histogram("h", (1.0, 2.0)).add(1.5)
+    a, b = (r.drain() for r in regs)
+    assert a == b and [p["collector"] for p in a] == ["ring", "histogram"]
+    assert regs[0].summary()["rings"] == {"loss": {"pushed": 1, "cap": 256}}
 
 
 # ---------------------------------------------------------------------------
@@ -403,9 +407,25 @@ def test_scripted_equivalent_replays_the_detected_storm(supervised_runs):
 
 
 @pytest.mark.parametrize("argv", [["--obs-dir", "x"]])
-def test_supervised_options_that_wait_raise(argv):
-    with pytest.raises(NotImplementedError, match="A.14"):
-        tsupervised.main(argv)
+def test_supervised_options_that_wait_raise(argv, tmp_path, capsys):
+    """No option waits any more: ``--obs-dir`` writes the supervisor's
+    tick spans and counters and the supervised trainer's streams, and the
+    run still matches its scripted replay."""
+    from repro_torch.controlplane.events import read_events
+
+    d = tmp_path / argv[1]
+    argv = [argv[0], str(d), "--device", "cpu", "--steps", "24"]
+    assert tsupervised.main(argv) == 0
+    assert "supervised fault-storm run OK" in capsys.readouterr().out
+    streams = {k: read_events(str(d / f"{k}.jsonl"))
+               for k in ("spans", "steps", "decisions", "metrics")}
+    assert all(streams.values())
+    names = [e.data["name"] for e in streams["spans"]]
+    assert names.count("supervisor.tick") == 24
+    assert names.count("trainer.step") == 24
+    summary = streams["metrics"][-1].data["summary"]
+    assert summary["counters"]["supervisor.ticks"] == 24
+    assert summary["counters"]["supervisor.membership_changes"] >= 2
 
 
 def test_supervised_needs_a_card_without_a_device(monkeypatch):

@@ -222,13 +222,26 @@ def test_single_job_resize_frees_the_old_width(tiny):
 # ---------------------------------------------------------------------------
 
 
-def test_cli_runs_on_the_cpu_and_refuses_obs(capsys):
+def test_cli_runs_on_the_cpu_and_refuses_obs(capsys, tmp_path):
+    """The CLI on the CPU, bare and with ``--obs-dir`` (which no longer
+    refuses: it writes the four streams, every job's decisions scored and
+    every tick in a ``multi_job.tick`` span)."""
+    from repro_torch.controlplane.events import read_events
+
     assert tmj.main(["--device", "cpu", "--jobs", "2", "--ticks", "6"]) == 0
     assert "fused dispatches" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="A.14"):
-        tmj.main(["--device", "cpu", "--obs-dir", "x"])
-    with pytest.raises(NotImplementedError, match="A.14"):
-        tmj.build_multi_job(1, 4, device="cpu", obs=object())
+    d = tmp_path / "obs"
+    assert tmj.main(["--device", "cpu", "--jobs", "2", "--ticks", "6",
+                     "--obs-dir", str(d)]) == 0
+    assert "python -m repro_torch.obs" in capsys.readouterr().out
+    streams = {k: read_events(str(d / f"{k}.jsonl"))
+               for k in ("spans", "steps", "decisions", "metrics")}
+    assert all(streams.values())
+    names = [e.data["name"] for e in streams["spans"]]
+    assert names.count("multi_job.tick") == 6 and "ps.flush" in names
+    assert {e.data["policy"] for e in streams["decisions"]} \
+        == {"job0", "job1"}
+    assert {e.data["job"] for e in streams["steps"]} == {"job0", "job1"}
 
 
 def test_demo_runs_on_the_cpu():

@@ -316,12 +316,16 @@ def test_trainer_follows_a_resizing_timer():
 
 
 def test_trainer_refuses_unported_features():
-    """Telemetry still raises naming A.14; checkpoints are ported (a
-    ``ckpt_dir`` with no checkpoint in it inits cold), and a controller
-    with ``stale_decay`` runs, refused only by the weights path."""
+    """Nothing the reference's Trainer takes is refused any more: an
+    ``obs`` run is accepted (``tests/test_torch_obs.py`` drives it),
+    checkpoints are ported (a ``ckpt_dir`` with no checkpoint in it inits
+    cold), and a controller with ``stale_decay`` runs, refused only by
+    the weights path."""
+    from repro_torch.obs import ObsRun
+
     kw = dict(step_fn=None, data=None, controller=tctl.FullSyncController(8))
-    with pytest.raises(NotImplementedError, match="A.14"):
-        TT.Trainer(obs=object(), **kw)
+    obs = ObsRun()
+    assert TT.Trainer(obs=obs, name="j", **kw).obs is obs
     tr = TT.Trainer(ckpt_dir="no-such-dir", **kw)
     tr.restore_or_init(lambda: {"cold": True})
     assert tr.state == {"cold": True} and tr.step == 0
