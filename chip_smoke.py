@@ -210,6 +210,48 @@ Phases, one JSON line each; any failure exits non-zero:
                  the same weights in f32 at full width and 8 layers (one
                  7 mLSTM + 1 sLSTM period), served on the CPU (plain path)
                  and on the card (kernel): logits and ids must agree
+  mlstm_grad     MLSTMChunk (the kernel forward, the plain recurrence's
+                 backward) against autograd of the plain path on the card,
+                 bf16 q/k/v and f32 gates, at train_xlstm's per-worker
+                 shape (B 2, S 128, H 4, hd 512) and S 300: y and the five
+                 gradients; forward and backward device ms beside the
+                 backward's bound
+  train_xlstm    full-width, full-depth xlstm-350m (bf16) trained by the
+                 psum step under train_dmm's DMM controller
+                 (CutoffController(rm, 48), ClusterSim(8, 2 nodes, seed
+                 7)): seq 128 x batch 16, W 8, fused AdamW, 3 steps, each
+                 asserting 21 x 8 mlstm_chunk, 1 masked_grad_agg and 1
+                 fused_adam launches and a finite loss
+  train_xlstm_parity
+                 xlstm-350m at full width, depth 2 (one mLSTM, one sLSTM
+                 block), f32, W 4: train_parity's comparisons, CPU against
+                 the card
+  serve_moe      full-depth deepseek-moe-16b (28 layers, 16,375,728,128
+                 parameters, bf16, drawn on the card) through
+                 ServeEngine.generate: 4 x 128 prompts, 32 greedy new
+                 tokens; asserts 28 x 33 flash launches and ids in range;
+                 prefill ms, ms per token, tokens/s, peak memory, the share
+                 of routed slots dropped at capacity in a prefill
+  serve_moe_profile
+                 the device's busy share of a short MoE request
+  serve_moe_parity
+                 deepseek-moe-16b at full width and depth 2, f32: prefill
+                 logits and greedy ids, CPU against the card
+  train_moe      deepseek-moe-16b at depth 2 (layer 0 dense, layer 1 MoE;
+                 1,091,315,712 parameters, bf16) under train_dmm's DMM
+                 controller: seq 128 x batch 16, W 8, psum, fused AdamW; 2
+                 steps, then a replay from the same state that must match
+                 them bit for bit (losses, cutoffs, aux, parameters) and
+                 goes on to 4 steps, each asserting its launches (flash 2
+                 x 8, masked_grad_agg 1, fused_adam 1), a finite loss and
+                 aux; c, aux, wall ms, peak memory, the dropped share; the
+                 device's busy share of one more step; then
+                 masked_grad_agg and fused_adam at this N on the trainer's
+                 own buffer and state, beside their bounds
+  train_moe_parity
+                 the same depth-2 model in f32, W 2, seq 32 x batch 4, 2
+                 steps: train_parity's comparisons and the aux, CPU against
+                 the card; the host's resident bytes
 
 Then the wall seconds of every phase, a ``{"kernels": [...]}`` summary
 line, the card's name and power limit from nvidia-smi, and
@@ -945,26 +987,40 @@ def phase_fused_adam(torch, shapes):
 
 
 def _train_setup(torch, cfg, params, *, n_workers, seq, batch, controller,
-                 timer, record=None):
-    """A psum Trainer with the slice's optimizer; ``record`` (a list), when
-    given, receives each step's aggregated gradient on the CPU."""
+                 timer, record=None, metrics_out=None, opt=None,
+                 step_fn=None):
+    """A psum Trainer with the slice's optimizer; ``record``, when given,
+    is called with each step's aggregated gradient on its device;
+    ``metrics_out`` (a list) receives each step's device ``aux`` and
+    ``ce``.  ``opt`` and ``step_fn`` are reused when given (one (W, N)
+    buffer for two runs)."""
     from repro_torch import optim
     from repro_torch.data.pipeline import SyntheticTokens
     from repro_torch.launch.train import Trainer, make_train_step
 
-    opt = optim.adamw(optim.cosine_schedule(3e-4, 2, 20), fused=True)
-    if record is not None:
-        inner = opt
+    if opt is None:
+        opt = optim.adamw(optim.cosine_schedule(3e-4, 2, 20), fused=True)
+        if record is not None:
+            inner = opt
 
-        def update(grads, state, params_=None):
-            record.append(cast(grads, "cpu", torch.float32))
-            return inner.update(grads, state, params_)
+            def update(grads, state, params_=None):
+                record(grads)
+                return inner.update(grads, state, params_)
 
-        opt = optim.Optimizer(inner.init, update)
-    step_fn = make_train_step(cfg, opt, mask_agg="psum")
+            opt = optim.Optimizer(inner.init, update)
+    if step_fn is None:
+        step_fn = make_train_step(cfg, opt, mask_agg="psum")
+    run_fn = step_fn
+    if metrics_out is not None:
+        def run_fn(state, b):
+            state, m = step_fn(state, b)
+            metrics_out.append({k: m[k] for k in ("aux", "ce")})
+            return state, m
+
+        run_fn.hold, run_fn.buffers = step_fn.hold, step_fn.buffers
     data = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=seq,
                            global_batch=batch, seed=SEED)
-    tr = Trainer(step_fn=step_fn, data=data, controller=controller,
+    tr = Trainer(step_fn=run_fn, data=data, controller=controller,
                  timer=timer, n_workers=n_workers, mask_agg="psum",
                  metrics_every=1)
     tr.restore_or_init(lambda: {"params": params, "opt": opt.init(params)})
@@ -1064,40 +1120,79 @@ def _scaled_err(torch, got, want):
 PARITY_TOL = {"loss": 1e-4, "grad": 1e-4, "m": 1e-4, "v": 3e-4}
 
 
-def phase_train_parity(torch, cfg_full):
+def _host_rss():
+    """(current, process peak) resident bytes of this process."""
+    import resource
+
+    with open("/proc/self/statm") as f:
+        cur = int(f.read().split()[1]) * resource.getpagesize()
+    return cur, resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def _train_parity(torch, cfg, p_cpu, *, W, S, B, n_steps, cutoff):
+    """The psum step (StaticCutoffController(W, cutoff), ClusterSim(W, 2
+    nodes, seed 7), fused AdamW) for ``n_steps`` on the CPU (plain
+    versions), then on the card (kernels), from the f32 params ``p_cpu``
+    (updated in place by the CPU run).  The CPU run keeps its gradients;
+    the card's are compared with them as they come, on the card, so the
+    host holds one run's state and gradients, not two.  Returns the record
+    of train_parity's comparisons (losses, the aggregated gradient, m, v,
+    p held tightly where every step's |g| is above 1e-3 of its leaf's
+    largest and within 2 lr per step elsewhere) and the per-step aux of
+    both runs."""
     from repro_torch import tree
     from repro_torch.cluster.simulator import ClusterSim
     from repro_torch.core.controller import StaticCutoffController
-    from repro_torch.models import model as M
     from repro_torch.optim import cosine_schedule
 
-    cfg = dataclasses.replace(cfg_full, n_layers=2, dtype="float32")
-    W, S, B, n_steps = 4, 32, 8, 2
-    p_cpu = M.init_model(cfg, torch.Generator().manual_seed(SEED + 3),
-                         device="cpu", dtype=torch.float32)
     p_gpu = cast(p_cpu, "cuda", torch.float32)
-    runs, seconds = {}, {}
-    for dev, params in (("cpu", p_cpu), ("cuda", p_gpu)):
+    seconds, hist, aux = {}, {}, {}
+    g_cpu, sure, grad_errs = [], None, []
+    names = _leaf_names(p_cpu)
+
+    def check_gpu(g):
+        nonlocal sure
+        want = [x.to("cuda") for x in g_cpu.pop(0)]
+        per_leaf = [_scaled_err(torch, [a.float()], [b])
+                    for a, b in zip(tree.leaves(g), want)]
+        worst = int(np.argmax(per_leaf))
+        grad_errs.append((per_leaf[worst], names[worst]))
+        # where the CPU's |g| is well above noise on every step
+        s = [x.abs() > 1e-3 * x.abs().max() for x in want]
+        sure = s if sure is None else [a & b for a, b in zip(sure, s)]
+
+    state = {}
+    for dev, params, rec in (
+            ("cpu", p_cpu,
+             lambda g: g_cpu.append([x.float() for x in tree.leaves(g)])),
+            ("cuda", p_gpu, check_gpu)):
         t0 = time.perf_counter()
-        grads = []
+        mets = []
         tr, _ = _train_setup(
             torch, cfg, params, n_workers=W, seq=S, batch=B,
-            controller=StaticCutoffController(W, cutoff=3),
-            timer=ClusterSim(n_workers=W, n_nodes=2, seed=7), record=grads)
-        hist = tr.run(n_steps)
-        runs[dev] = (hist, grads, cast(tr.state["params"], "cpu",
-                                       torch.float32),
-                     cast({k: tr.state["opt"][k] for k in ("m", "v")}, "cpu",
-                          torch.float32))
+            controller=StaticCutoffController(W, cutoff=cutoff),
+            timer=ClusterSim(n_workers=W, n_nodes=2, seed=7), record=rec,
+            metrics_out=mets)
+        hist[dev] = tr.run(n_steps)
+        aux[dev] = [float(m["aux"]) for m in mets]
+        state[dev] = {"p": tr.state["params"],
+                      "m": tr.state["opt"]["m"], "v": tr.state["opt"]["v"]}
+        del tr, mets
+        gc.collect()
         seconds[dev] = time.perf_counter() - t0
-    (h_c, g_c, p_c, o_c), (h_g, g_g, p_g, o_g) = runs["cpu"], runs["cuda"]
+    t0 = time.perf_counter()
+    h_c, h_g = hist["cpu"], hist["cuda"]
     check([(h["c"], h["clock"]) for h in h_c]
           == [(h["c"], h["clock"]) for h in h_g], "cutoffs/clock differ")
     loss_err = max(abs(a["loss"] - b["loss"]) for a, b in zip(h_c, h_g))
-    grad_err = max(_scaled_err(torch, tree.leaves(a), tree.leaves(b))
-                   for a, b in zip(g_g, g_c))
-    m_err = _scaled_err(torch, tree.leaves(o_g["m"]), tree.leaves(o_c["m"]))
-    v_err = _scaled_err(torch, tree.leaves(o_g["v"]), tree.leaves(o_c["v"]))
+
+    def pairs(key):   # (card leaf, CPU leaf on the card), one at a time
+        for a, b in zip(tree.leaves(state["cuda"][key]),
+                        tree.leaves(state["cpu"][key])):
+            yield a, b.to("cuda")
+
+    m_err = max(_scaled_err(torch, [a], [b]) for a, b in pairs("m"))
+    v_err = max(_scaled_err(torch, [a], [b]) for a, b in pairs("v"))
     # Adam's first steps move each entry by about lr times the sign of its
     # gradient, whatever the gradient's size: where |g| sits at rounding
     # noise the two devices may disagree on that sign, so p is held tightly
@@ -1108,38 +1203,79 @@ def phase_train_parity(torch, cfg_full):
     tight_tol, loose_tol = 0.05 * lr_sum, 2.0 * lr_sum
     tight_err = loose_err = 0.0
     n_tight = n_all = 0
-    flat_g = [tree.leaves(g) for g in g_c]
-    for i, (a, b) in enumerate(zip(tree.leaves(p_g), tree.leaves(p_c))):
-        sure = torch.ones_like(b, dtype=torch.bool)
-        for gs in flat_g:
-            g = gs[i]
-            sure &= g.abs() > 1e-3 * g.abs().max()
+    for i, (a, b) in enumerate(pairs("p")):
         d = (a - b).abs()
-        if bool(sure.any()):
-            tight_err = max(tight_err, d[sure].max().item())
+        if bool(sure[i].any()):
+            tight_err = max(tight_err, d[sure[i]].max().item())
         loose_err = max(loose_err, d.max().item())
-        n_tight += int(sure.sum())
+        n_tight += int(sure[i].sum())
         n_all += d.numel()
+    seconds["compare"] = time.perf_counter() - t0
     rec = {"dtype": "float32", "layers": cfg.n_layers, "d_model": cfg.d_model,
            "vocab": cfg.vocab_size, "workers": W, "seq": S, "batch": B,
            "steps": n_steps, "c": [h["c"] for h in h_g],
            "loss_cpu": [h["loss"] for h in h_c],
            "loss_cuda": [h["loss"] for h in h_g],
-           "loss_max_abs_err": loss_err, "grad_scaled_err": grad_err,
+           "loss_max_abs_err": loss_err,
+           "grad_scaled_err": max(e for e, _ in grad_errs),
+           "grad_scaled_err_by_step": [e for e, _ in grad_errs],
+           "grad_worst_leaf_by_step": [n for _, n in grad_errs],
            "m_scaled_err": m_err, "v_scaled_err": v_err,
            "p_tight_max_abs_err": tight_err, "p_tight_tol": tight_tol,
            "p_tight_share": n_tight / n_all,
            "p_max_abs_err": loose_err, "p_tol": loose_tol, "tol": PARITY_TOL,
            "seconds": seconds}
+    del state, p_gpu, sure
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, aux
+
+
+def _leaf_names(node, pre=""):
+    """'/layers/1/moe/router'-style names, in ``tree.leaves`` order."""
+    if isinstance(node, dict):
+        return [n for k in sorted(node) for n in
+                _leaf_names(node[k], f"{pre}/{k}")]
+    if isinstance(node, (list, tuple)):
+        return [n for i, v in enumerate(node) for n in
+                _leaf_names(v, f"{pre}/{i}")]
+    return [pre]
+
+
+def _check_train_parity(rec, what, tol=None):
+    """train_parity's bars (``PARITY_TOL``), or ``tol``: the first step's
+    gradient (identical params on both devices) at ``tol["grad"]``, the
+    later steps' at ``tol["grad_later"]`` where given."""
+    tol = tol or PARITY_TOL
+    by_step = rec["grad_scaled_err_by_step"]
+    check(rec["loss_max_abs_err"] <= tol["loss"],
+          f"{what}: loss differs by {rec['loss_max_abs_err']}")
+    check(by_step[0] <= tol["grad"], f"{what}: step 1's aggregated "
+          f"gradient differs by {by_step[0]} of its scale")
+    check(max(by_step) <= tol.get("grad_later", tol["grad"]),
+          f"{what}: aggregated gradient differs by {max(by_step)} of its "
+          f"scale ({by_step} by step)")
+    check(rec["m_scaled_err"] <= tol["m"],
+          f"{what}: m differs by {rec['m_scaled_err']} of its scale")
+    check(rec["v_scaled_err"] <= tol["v"],
+          f"{what}: v differs by {rec['v_scaled_err']} of its scale")
+    check(rec["p_tight_max_abs_err"] <= rec["p_tight_tol"],
+          f"{what}: p differs by {rec['p_tight_max_abs_err']} > "
+          f"{rec['p_tight_tol']} where |g| is well above noise")
+    check(rec["p_max_abs_err"] <= rec["p_tol"],
+          f"{what}: p differs by {rec['p_max_abs_err']} > {rec['p_tol']}")
+
+
+def phase_train_parity(torch, cfg_full):
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(cfg_full, n_layers=2, dtype="float32")
+    p_cpu = M.init_model(cfg, torch.Generator().manual_seed(SEED + 3),
+                         device="cpu", dtype=torch.float32)
+    rec, _ = _train_parity(torch, cfg, p_cpu, W=4, S=32, B=8, n_steps=2,
+                           cutoff=3)
     emit("train_parity", **rec)
-    check(loss_err <= PARITY_TOL["loss"], f"loss differs by {loss_err}")
-    check(grad_err <= PARITY_TOL["grad"],
-          f"aggregated gradient differs by {grad_err} of its scale")
-    check(m_err <= PARITY_TOL["m"], f"m differs by {m_err} of its scale")
-    check(v_err <= PARITY_TOL["v"], f"v differs by {v_err} of its scale")
-    check(tight_err <= tight_tol, f"p differs by {tight_err} > {tight_tol} "
-          f"where |g| is well above noise")
-    check(loose_err <= loose_tol, f"p differs by {loose_err} > {loose_tol}")
+    _check_train_parity(rec, "train_parity")
 
 
 # ---------------------------------------------------------------------------
@@ -3559,6 +3695,584 @@ def phase_xlstm_parity(torch, cfg_full, params_f32):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# xLSTM training on the card (mlstm_chunk through its autograd Function)
+# and the MoE family (deepseek-moe-16b): served at full depth, trained at
+# depth 2 under the DMM cutoff.
+# ---------------------------------------------------------------------------
+
+# (name, B, S, H, hd): train_xlstm's per-worker shape and a multi-chunk S
+MLSTM_GRAD_CASES = [("train_b2_s128", 2, 128, 4, 512),
+                    ("s300", 2, 300, 4, 512)]
+MLSTM_GRAD_HEADLINE = "train_b2_s128"
+# the Function's gradients are the plain recurrence's own on the same
+# inputs (its backward recomputes it in f32), each rounded once to its
+# input's dtype: held to 1e-6 of their scale against autograd of the plain
+# path on f32 copies of the inputs, rounded the same way; y to the
+# forward's MLSTM_TOL
+MLSTM_GRAD_TOL = 1e-6
+# train_moe_parity: the first step's gradient (identical params on both
+# devices) at train_parity's 1e-4; the second step's, and m which mixes
+# the two, at 5e-4.  Adam's first update moves every entry whose gradient
+# sits at rounding noise by lr times a sign the devices may disagree on,
+# so the second gradient is taken at params up to 2 lr apart.  With the
+# weights drawn on the host, layer 0's dense w_up (2048 x 10944) read
+# 1.84e-4 of its scale there against 3.9e-6 at the first step; drawn on
+# the card as now, 7.7e-5 against 3.6e-6 (PERF.md §6;
+# scripts/torch_moe_grad_leaves.py: one step's loss gradient ~4e-6 apart,
+# the CPU against itself in another summation order ~3e-6)
+MOE_PARITY_TOL = dict(PARITY_TOL, grad_later=5e-4, m=5e-4)
+XLSTM_STEPS = 3
+MOE_STEPS = 4
+MOE_REPLAY = 2
+
+
+def _dmm_controller(rm):
+    """train_dmm's controller on its fitted model: CutoffController(rm,
+    k_samples=48) seeded with the trace the model was fitted on."""
+    from repro_torch.cluster.simulator import ClusterSim
+    from repro_torch.core.controller import CutoffController
+
+    ctl = CutoffController(rm, k_samples=48)
+    ctl.seed_window(ClusterSim(n_workers=8, n_nodes=2, seed=0).run(200))
+    return ctl
+
+
+def mlstm_bwd_bound(B, S, H, hd, dtname):
+    """The least time of the mLSTM's backward (dy -> dq, dk, dv, dg, di),
+    in ms, with its basis: q/k/v, the gates and dy read once, the five
+    gradients written once, over 3.35 TB/s, against twice the forward's
+    operations (each product's gradient is two products of its size) at
+    the forward's rates; the f32-FMA floor of the same count beside it.
+    The plain backward the Function runs also recomputes the forward (one
+    more forward's operations), which the bound leaves out."""
+    elt = 2 if dtname == "bfloat16" else 4
+    nbytes = (2 * (3 * B * S * H * hd * elt + 2 * B * S * H * 4)
+              + B * S * H * hd * 4)
+    qk, rest = mlstm_ops(B, S, H, hd, PALLAS_MLSTM_CHUNK)
+    qk_rate = PEAK_OPS["bfloat16"] if dtname == "bfloat16" else TF32_OPS
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * (qk / qk_rate + rest / TF32_OPS) * 1e3
+    return {"bwd_bound_ms": max(t_bytes, t_ops),
+            "bwd_bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bwd_fma_floor_ms": 2 * (qk + rest) / PEAK_OPS["float32"] * 1e3,
+            "bwd_bytes": nbytes, "bwd_ops": 2 * (qk + rest)}
+
+
+def phase_mlstm_grad(torch):
+    """MLSTMChunk (the kernel forward, the plain recurrence's backward) on
+    the card against autograd of the plain path on the card, bf16 q/k/v
+    and f32 gates: y and the gradients of q, k, v, g, i; the forward's
+    device ms (graph replay) and the backward's (the profiler's kernel
+    time of one plain recompute-and-differentiate, what the Function's
+    backward runs) beside the backward's bound."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.mlstm_chunk import MLSTMChunk, mlstm_chunk
+    from repro_torch.kernels.mlstm_plain import linear_recurrence
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    side = torch.cuda.Stream()
+    results = {}
+    for name, B, S, H, hd in MLSTM_GRAD_CASES:
+        xs = _mlstm_inputs(torch, B, S, H, hd, "bfloat16", "normal", gen)
+        r = torch.randn((B, S, H, hd), generator=gen, device="cuda")
+        leaves = [t.detach().requires_grad_(True) for t in xs]
+        build.LAUNCHES.clear()
+        y, *_ = MLSTMChunk.apply(*leaves)
+        got = torch.autograd.grad((y * r).sum(), leaves)
+        check(build.LAUNCHES["mlstm_chunk"] == 1,
+              f"mlstm_grad {name}: {dict(build.LAUNCHES)} launches")
+        # the plain path on f32 copies of the same inputs: its gradients
+        # rounded once to each input's dtype are what the Function returns
+        plain = [t.detach().float().requires_grad_(True) for t in xs]
+        yp, _ = linear_recurrence(*plain)
+        want = torch.autograd.grad((yp * r).sum(), plain)
+        torch.cuda.synchronize()
+        y_ex = _allclose_excess(torch, y, yp, MLSTM_TOL, MLSTM_TOL).item()
+        check(y_ex <= MLSTM_TOL, f"mlstm_grad {name}: y off by {y_ex}")
+        errs = {}
+        for key, a, b, x in zip("qkvgi", got, want, xs):
+            check(a.dtype == x.dtype, f"mlstm_grad {name}: d{key} is "
+                  f"{a.dtype}, its input {x.dtype}")
+            check(bool(torch.isfinite(a).all()),
+                  f"mlstm_grad {name}: d{key} not finite")
+            errs[key] = _scaled_err(torch, [a.float()],
+                                    [b.to(a.dtype).float()])
+            check(errs[key] <= MLSTM_GRAD_TOL, f"mlstm_grad {name}: d{key} "
+                  f"off by {errs[key]} of its scale")
+
+        def bwd():
+            with torch.enable_grad():
+                ls = [t.detach().requires_grad_(True) for t in xs]
+                out, _ = linear_recurrence(*(t.float() for t in ls))
+                return torch.autograd.grad(out, ls, r)
+
+        fwd_ms = device_ms(torch, lambda: mlstm_chunk(*xs), side)
+        bwd_eager = eager_ms(torch, bwd, reps=5, warmup=2)
+        prof = device_profile(torch, bwd, n_top=5)
+        rec = {"case": name, "shape": [B, S, H, hd], "dtype": "bfloat16",
+               "y_max_abs_err": (y - yp).abs().max().item(),
+               "grad_scaled_err": errs, "tol": {"y": MLSTM_TOL,
+                                                "grad": MLSTM_GRAD_TOL},
+               "fwd_ms": fwd_ms, "bwd_ms": prof["device_ms"],
+               "bwd_eager_ms": bwd_eager,
+               "bwd_device_events": prof["device_events"],
+               "bwd_top": prof["top"],
+               **mlstm_bound(B, S, H, hd, "bfloat16"),
+               **mlstm_bwd_bound(B, S, H, hd, "bfloat16")}
+        results[name] = rec
+        emit("mlstm_grad", **rec)
+        del xs, r, leaves, y, got, plain, yp, want
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_train_xlstm(torch, cfg, params_f32, rm):
+    """Full-width, full-depth xlstm-350m (bf16) trained by the psum step
+    under train_dmm's DMM controller over ClusterSim(8, 2 nodes, seed 7):
+    seq 128 x batch 16, W 8, fused AdamW.  Each step asserts 21 x 8
+    mlstm_chunk launches (every mLSTM block of every worker, forward
+    through MLSTMChunk), one masked_grad_agg, one fused_adam, no flash
+    launch, a finite loss."""
+    from repro_torch import tree
+    from repro_torch.cluster.simulator import ClusterSim
+    from repro_torch.kernels import build
+    from repro_torch.models import model as M
+
+    W, S, B = 8, 128, 16
+    n_mlstm = sum(s.kind == "mlstm" for s in M.layer_specs(cfg))
+    params = cast(params_f32, "cuda", torch.bfloat16)
+    tr, opt = _train_setup(torch, cfg, params, n_workers=W, seq=S, batch=B,
+                           controller=_dmm_controller(rm),
+                           timer=ClusterSim(n_workers=W, n_nodes=2, seed=7))
+    want = {"mlstm_chunk": n_mlstm * W, "masked_grad_agg": 1,
+            "fused_adam": 1}
+    totals, walls = {}, []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(XLSTM_STEPS):
+        build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        rec = tr.run(1)[-1]        # drains the loss: ends in a device sync
+        wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        check(launches == want, f"train_xlstm step {rec['step']}: launches "
+              f"{launches}, want {want}")
+        check(bool(np.isfinite(rec["loss"])),
+              f"train_xlstm step {rec['step']}: loss {rec['loss']}")
+        walls.append(wall * 1e3)
+        emit("train_xlstm", arch=cfg.name, dtype="bfloat16", step=rec["step"],
+             wall_ms=wall * 1e3, tokens_per_s=B * S / wall, c=rec["c"],
+             n=rec["n"], loss=rec["loss"], clock=rec["clock"],
+             launches=launches,
+             max_memory_allocated=torch.cuda.max_memory_allocated())
+    n_params = sum(x.numel() for x in tree.leaves(params))
+    emit("train_xlstm_summary", params=n_params, layers=cfg.n_layers,
+         mlstm_layers=n_mlstm, workers=W, seq=S, batch=B,
+         median_wall_ms=float(np.median(walls[1:])), launches=totals,
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    del tr, opt, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
+def phase_train_xlstm_parity(torch, cfg_full):
+    """xlstm-350m at full width, depth 2 with the sLSTM kept (one mLSTM
+    and one sLSTM block), f32, W 4, seq 32 x batch 8: the psum step's 2
+    steps on the CPU against the card, train_parity's comparisons."""
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(cfg_full, n_layers=2, slstm_every=2,
+                              dtype="float32")
+    p_cpu = M.init_model(cfg, torch.Generator().manual_seed(SEED + 9),
+                         device="cpu", dtype=torch.float32)
+    rec, _ = _train_parity(torch, cfg, p_cpu, W=4, S=32, B=8, n_steps=2,
+                           cutoff=3)
+    emit("train_xlstm_parity", arch=cfg.name,
+         kinds=[s.kind for s in M.layer_specs(cfg)], **rec)
+    _check_train_parity(rec, "train_xlstm_parity")
+
+
+class _DropCount:
+    """Counts the routed slots the MoE dispatch keeps and drops while it is
+    installed (``moe.dispatch_plan`` wrapped; the counts stay on the device
+    until read)."""
+
+    def __init__(self, moe):
+        self.moe, self.inner, self.kept, self.total = moe, None, [], 0
+
+    def __enter__(self):
+        self.inner = self.moe.dispatch_plan
+
+        def counted(topk_i, n_experts, capacity):
+            plan = self.inner(topk_i, n_experts, capacity)
+            self.kept.append((plan.dst < n_experts * capacity).sum())
+            self.total += plan.dst.numel()
+            return plan
+
+        self.moe.dispatch_plan = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.dispatch_plan = self.inner
+
+    def share(self, torch):
+        kept = int(torch.stack(self.kept).sum()) if self.kept else 0
+        return {"routed_slots": self.total,
+                "dropped": self.total - kept,
+                "dropped_share": (self.total - kept) / max(self.total, 1)}
+
+
+def init_moe(torch, cfg, dtype, seed):
+    """deepseek-moe-16b's weights drawn on the card by a CUDA generator,
+    one weight at a time (the full model in f32 would need 65 GB of
+    host memory)."""
+    from repro_torch.models import model as M
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return M.init_model(cfg, gen, device="cuda", dtype=dtype)
+
+
+def phase_serve_moe(torch, cfg):
+    """Full-depth deepseek-moe-16b (28 layers, bf16, weights drawn on the
+    card) through ServeEngine.generate: 4 prompts x 128 tokens, 32 greedy
+    new tokens; asserts 28 x 33 flash launches and ids in range; prefill
+    ms, ms per token, tokens/s, peak memory, and the share of routed slots
+    dropped at capacity in a prefill; then the device's busy share of a
+    short request."""
+    from repro_torch import tree
+    from repro_torch.kernels import build
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.serving.engine import ServeEngine
+
+    B, S, n_new = 4, 128, 32
+    t0 = time.perf_counter()
+    params = init_moe(torch, cfg, torch.bfloat16, SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in tree.leaves(params))
+    check(n_params == cfg.n_params(), f"deepseek-moe-16b: {n_params} "
+          f"parameters, want {cfg.n_params()}")
+    engine = ServeEngine(cfg, params, max_len=S + n_new)
+    prompts = np.random.default_rng(SEED + 10).integers(
+        0, cfg.vocab_size, size=(B, S), dtype=np.int32)
+    engine.generate(prompts, 2)   # warm-up: cuBLAS handles, allocator
+
+    torch.cuda.reset_peak_memory_stats()
+    build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    ids = engine.generate(prompts, n_new)       # ends in one .cpu() copy
+    gen_s = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    want = {"flash_attention": cfg.n_layers * (1 + n_new)}
+    check(launches == want, f"serve_moe launched {launches}, want {want}")
+    check(ids.shape == (B, n_new) and ids.dtype == np.int32,
+          f"ids {ids.shape} {ids.dtype}")
+    check(bool(np.all((ids >= 0) & (ids < cfg.vocab_size))),
+          "ids out of vocabulary range")
+    peak = torch.cuda.max_memory_allocated()
+
+    toks = torch.as_tensor(prompts, dtype=torch.int64, device="cuda")
+    batch = {"tokens": toks,
+             "positions": torch.arange(S, device="cuda").expand(B, S)}
+    with torch.inference_mode():
+        prefill_ms = eager_ms(torch, lambda: M.prefill(cfg, engine.params,
+                                                       batch), reps=3,
+                              warmup=1)
+        with _DropCount(moe) as drops:
+            M.prefill(cfg, engine.params, batch)
+    gen_ms = gen_s * 1e3
+    emit("serve_moe", arch=cfg.name, dtype="bfloat16", batch=B, prompt=S,
+         n_new=n_new, params=n_params, layers=cfg.n_layers,
+         init_s=init_s, launches=launches, generate_ms=gen_ms,
+         prefill_ms=prefill_ms,
+         decode_ms_per_token=(gen_ms - prefill_ms) / n_new,
+         tokens_per_s=B * n_new / gen_s, max_memory_allocated=peak,
+         capacity_prefill=moe.capacity_for(cfg, B * S),
+         capacity_decode=moe.capacity_for(cfg, B),
+         prefill_drops=drops.share(torch), first_ids=ids[0, :8].tolist())
+
+    n_prof = 4
+    t0 = time.perf_counter()
+    engine.generate(prompts, n_prof)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    prof = device_profile(torch, lambda: engine.generate(prompts, n_prof))
+    emit("serve_moe_profile", n_new=n_prof, wall_ms=wall_ms,
+         device_busy_share=prof["device_ms"] / wall_ms, **prof)
+    del engine, params, batch, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serve_moe_parity(torch, cfg_full):
+    """deepseek-moe-16b at full width and depth 2 (the dense first layer
+    and one MoE layer), f32: prefill logits within PARITY_LOGIT_ATOL and
+    equal greedy ids, the CPU (plain path) against the card (kernels)."""
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import ServeEngine
+
+    cfg = dataclasses.replace(cfg_full, n_layers=2, dtype="float32")
+    params = cast(init_moe(torch, cfg, torch.float32, SEED + 11), "cpu",
+                  torch.float32)
+    torch.cuda.empty_cache()
+    S, n_new = 64, 8
+    prompt = np.random.default_rng(SEED + 12).integers(
+        0, cfg.vocab_size, size=(1, S), dtype=np.int32)
+    seconds, logits, ids = {}, {}, {}
+    cpu = ServeEngine(cfg, params, max_len=S + n_new, device="cpu")
+    gpu = ServeEngine(cfg, cast(params, "cuda", torch.float32),
+                      max_len=S + n_new)
+    for name, eng in (("cpu", cpu), ("cuda", gpu)):
+        t0 = time.perf_counter()
+        toks = torch.as_tensor(prompt, dtype=torch.int64, device=eng.device)
+        batch = {"tokens": toks,
+                 "positions": torch.arange(S, device=eng.device)[None]}
+        with torch.inference_mode():
+            logits[name] = M.prefill(cfg, eng.params, batch)[0].float().cpu()
+        ids[name] = eng.generate(prompt, n_new)
+        seconds[name] = time.perf_counter() - t0
+    err = (logits["cpu"] - logits["cuda"]).abs().max().item()
+    same = bool(np.array_equal(ids["cpu"], ids["cuda"]))
+    top2 = torch.topk(logits["cpu"][0], 2).values
+    emit("serve_moe_parity", arch=cfg.name, dtype="float32",
+         layers=cfg.n_layers, prompt=S, n_new=n_new,
+         logits_max_abs_err=err, tol=PARITY_LOGIT_ATOL,
+         logits_max_abs=logits["cpu"].abs().max().item(), ids_equal=same,
+         ids_cpu=ids["cpu"][0].tolist(), ids_cuda=ids["cuda"][0].tolist(),
+         first_logit_gap=(top2[0] - top2[1]).item(), seconds=seconds,
+         host_rss=_host_rss())
+    check(err <= PARITY_LOGIT_ATOL,
+          f"moe prefill logits differ by {err} > {PARITY_LOGIT_ATOL}")
+    check(same, "moe greedy ids differ between the CPU and the card")
+    del gpu, cpu, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _moe_kernel_times(torch, buf, state):
+    """masked_grad_agg on the trainer's own (W, N) buffer and fused_adam
+    over its leaves (bf16 p, random bf16 g, its f32 m and v), at the MoE
+    trainer's N: kernel, plain and library device ms beside the bounds.
+    The plain masked mean runs over column blocks of 2^27 (one call over
+    the whole buffer would need a second (W, N) f32 temporary)."""
+    from repro_torch import tree
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused_adam import LeafTable, fused_adam_
+    from repro_torch.kernels.masked_grad_agg import masked_grad_agg
+    from repro_torch.kernels.ref import reference_adam, reference_masked_agg
+
+    side = torch.cuda.Stream()
+    W, N = buf.shape
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    mask = _agg_masks(torch, W, gen)["bits"]
+    cols = 1 << 27
+    blocks = [(a, min(a + cols, N)) for a in range(0, N, cols)]
+    got = masked_grad_agg(buf, mask)
+    err = max((got[a:b] - reference_masked_agg(
+        buf[:, a:b], mask.reshape(-1, 1))[0]).abs().max().item()
+        for a, b in blocks)
+    del got
+    check(err <= AGG_TOL["float32"], f"masked_grad_agg on the ({W}, N) "
+          f"MoE buffer: off by {err}")
+    m2 = mask.reshape(1, W)
+    c = torch.clamp(mask.sum(), min=1.0)
+    agg = {"W": W, "N": N, "max_abs_err": err,
+           "ms": device_ms(torch, lambda: masked_grad_agg(buf, mask), side,
+                           reps=5),
+           "plain_ms": device_ms(torch, lambda: [reference_masked_agg(
+               buf[:, a:b], mask.reshape(-1, 1)) for a, b in blocks], side,
+               reps=2),
+           "library_ms": device_ms(torch, lambda: (m2 @ buf) / c, side,
+                                   reps=5)}
+    nbytes = W * N * 4 + N * 4 + 4 * W
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * W * N / PEAK_OPS["float32"] * 1e3
+    agg.update(bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               bytes=nbytes, plain_blocks=len(blocks))
+    emit("train_moe_masked_grad_agg", **agg)
+
+    ps = tree.leaves(state["params"])
+    ms, vs = tree.leaves(state["opt"]["m"]), tree.leaves(state["opt"]["v"])
+    gs = [(torch.randn(p.shape, generator=gen, device="cuda") * 1e-3
+           ).to(p.dtype) for p in ps]
+    scal = ops.adam_scalars(10, 3e-4, 0.9, 0.999)
+    table = LeafTable()
+    n_params = sum(p.numel() for p in ps)
+    adam = {"leaves": len(ps), "params": n_params,
+            "ms": device_ms(torch, lambda: fused_adam_(
+                ps, gs, ms, vs, scal, wd=0.01, table=table), side, reps=5),
+            "plain_ms": device_ms(torch, lambda: [
+                reference_adam(p, g, m, v, scal, wd=0.01)
+                for p, g, m, v in zip(ps, gs, ms, vs)], side, reps=2)}
+    lib_params = [p.detach().clone() for p in ps]
+    for lp, g in zip(lib_params, gs):
+        lp.grad = g
+    lib = torch.optim.AdamW(lib_params, lr=3e-4, weight_decay=0.01,
+                            fused=True, capturable=True)
+    adam["library_ms"] = device_ms(torch, lib.step, side, reps=5)
+    adam["library"] = ("torch.optim.AdamW(fused=True, capturable=True), "
+                       "bf16 params, grads and moments")
+    pe = ps[0].element_size()
+    nbytes = n_params * (2 * pe + pe + 2 * 4 * 2)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 12 * n_params / PEAK_OPS["float32"] * 1e3
+    adam.update(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes)
+    emit("train_moe_fused_adam", **adam)
+    del gs, lib_params, lib, table
+    return agg, adam
+
+
+def phase_train_moe(torch, cfg_full, rm):
+    """deepseek-moe-16b at full width and depth 2 (layer 0 dense, layer 1
+    MoE; bf16, weights drawn on the card) trained by the psum step under
+    train_dmm's DMM controller over ClusterSim(8, 2 nodes, seed 7): seq
+    128 x batch 16, W 8, fused AdamW.  A first run of MOE_REPLAY steps
+    (the dropped share counted), then a second run from the same state,
+    controller, timer and data that must give the same losses and
+    parameters bit for bit over those steps (the dispatch writes no
+    buffer by a scatter-add) and goes on to MOE_STEPS steps, each
+    asserting its launches (flash 2 x 8, masked_grad_agg 1, fused_adam 1),
+    a finite loss and aux.  The two runs share one step function: one
+    (8, N) buffer.  Then the kernels at this N on the trainer's own
+    buffer and state."""
+    from repro_torch import tree
+    from repro_torch.cluster.simulator import ClusterSim
+    from repro_torch.kernels import build
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import moe
+    from repro_torch.optim import adamw, cosine_schedule
+
+    cfg = dataclasses.replace(cfg_full, n_layers=2)
+    W, S, B = 8, 128, 16
+    t0 = time.perf_counter()
+    p0 = cast(init_moe(torch, cfg, torch.bfloat16, SEED + 13), "cpu",
+              torch.bfloat16)
+    n_params = sum(x.numel() for x in tree.leaves(p0))
+    check(n_params == cfg.n_params(), f"depth-2 deepseek-moe-16b: "
+          f"{n_params} parameters, want {cfg.n_params()}")
+    opt = adamw(cosine_schedule(3e-4, 2, 20), fused=True)
+    step_fn = make_train_step(cfg, opt, mask_agg="psum")
+    setup_s = time.perf_counter() - t0
+
+    def trainer(mets):
+        return _train_setup(
+            torch, cfg, cast(p0, "cuda", torch.bfloat16), n_workers=W,
+            seq=S, batch=B, controller=_dmm_controller(rm),
+            timer=ClusterSim(n_workers=W, n_nodes=2, seed=7),
+            metrics_out=mets, opt=opt, step_fn=step_fn)[0]
+
+    # run 1: the replayed steps, with the dropped slots counted
+    mets1 = []
+    tr = trainer(mets1)
+    with _DropCount(moe) as drops:
+        hist1 = [dict(h) for h in tr.run(MOE_REPLAY)]
+    after1 = _cpu_copy(torch, tr.state["params"])
+    drop_share = drops.share(torch)
+    aux1 = [float(m["aux"]) for m in mets1]
+    del tr
+    gc.collect()
+
+    want = {"flash_attention": cfg.n_layers * W, "masked_grad_agg": 1,
+            "fused_adam": 1}
+    mets = []
+    tr = trainer(mets)
+    totals, walls, steps = {}, [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(MOE_STEPS):
+        build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        rec = tr.run(1)[-1]        # drains the loss: ends in a device sync
+        wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        aux = float(mets[-1]["aux"])
+        check(launches == want, f"train_moe step {rec['step']}: launches "
+              f"{launches}, want {want}")
+        check(bool(np.isfinite(rec["loss"])) and np.isfinite(aux)
+              and aux > 0.0, f"train_moe step {rec['step']}: loss "
+              f"{rec['loss']}, aux {aux}")
+        if i + 1 == MOE_REPLAY:
+            replay = {
+                "losses_equal": [h["loss"] for h in hist1]
+                == [h["loss"] for h in tr.history],
+                "cutoffs_equal": [h["c"] for h in hist1]
+                == [h["c"] for h in tr.history],
+                "aux_equal": aux1 == [float(m["aux"]) for m in mets],
+                "params_equal": _bit_equal(
+                    torch, after1, _cpu_copy(torch, tr.state["params"]))}
+            check(all(replay.values()), f"train_moe: the replay of "
+                  f"{MOE_REPLAY} steps differs: {replay}")
+            del after1
+        walls.append(wall * 1e3)
+        steps.append({"step": rec["step"], "c": rec["c"], "n": rec["n"],
+                      "loss": rec["loss"], "aux": aux,
+                      "clock": rec["clock"], "wall_ms": wall * 1e3})
+        emit("train_moe", arch=cfg.name, dtype="bfloat16", **steps[-1],
+             tokens_per_s=B * S / wall, launches=launches,
+             max_memory_allocated=torch.cuda.max_memory_allocated())
+    peak = torch.cuda.max_memory_allocated()
+    # the device's busy share of one more step
+    wall = []
+
+    def one_step():
+        t0 = time.perf_counter()
+        tr.run(1)
+        wall.append((time.perf_counter() - t0) * 1e3)
+
+    prof = device_profile(torch, one_step)
+    emit("train_moe_profile", wall_ms=wall[0],
+         device_busy_share=prof["device_ms"] / wall[0], **prof)
+    check(len(step_fn.buffers) == 1, f"train_moe: {len(step_fn.buffers)} "
+          f"worker buffers, want the one (8, N)")
+    buf = next(iter(step_fn.buffers.values())).buf
+    agg, adam = _moe_kernel_times(torch, buf, tr.state)
+    emit("train_moe_summary", params=n_params, layers=cfg.n_layers,
+         workers=W, seq=S, batch=B, setup_s=setup_s,
+         median_wall_ms=float(np.median(walls[1:])), launches=totals,
+         max_memory_allocated=peak, replay=replay,
+         replay_losses=[h["loss"] for h in hist1], replay_aux=aux1,
+         capacity=moe.capacity_for(cfg, (B // W) * S),
+         dropped=drop_share)
+    del tr, buf, step_fn, opt, p0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals, agg, adam
+
+
+def phase_train_moe_parity(torch, cfg_full):
+    """deepseek-moe-16b at full width and depth 2, f32, W 2 (one worker
+    dropped), seq 32 x batch 4, fused AdamW, 2 steps: the card against the
+    CPU, train_parity's comparisons at MOE_PARITY_TOL and the aux of every
+    step; the host's resident bytes (the CPU run holds the model's f32
+    state and gradients: ~46 GB at its peak)."""
+    cfg = dataclasses.replace(cfg_full, n_layers=2, dtype="float32")
+    # drawn on the card, then copied: the CPU's draw of 1.09e9 normals
+    # would take seconds of the phase
+    p_cpu = cast(init_moe(torch, cfg, torch.float32, SEED + 14), "cpu",
+                 torch.float32)
+    torch.cuda.empty_cache()
+    rec, aux = _train_parity(torch, cfg, p_cpu, W=2, S=32, B=4, n_steps=2,
+                             cutoff=1)
+    aux_err = max(abs(a - b) for a, b in zip(aux["cpu"], aux["cuda"]))
+    rec["tol"] = MOE_PARITY_TOL
+    emit("train_moe_parity", arch=cfg.name, aux_cpu=aux["cpu"],
+         aux_cuda=aux["cuda"], aux_max_abs_err=aux_err,
+         host_rss=_host_rss(), **rec)
+    _check_train_parity(rec, "train_moe_parity", MOE_PARITY_TOL)
+    check(aux_err <= MOE_PARITY_TOL["loss"], f"train_moe_parity: aux "
+          f"differs by {aux_err}")
+
+
 def timed(seconds, name, fn, *args):
     """Run one phase and keep its wall time under ``name``."""
     t0 = time.perf_counter()
@@ -3605,7 +4319,6 @@ def main() -> int:
     obs_launches = timed(sec, "obs", phase_obs, torch, cfg, params_f32, rm)
     policy_launches = timed(sec, "train_policies", phase_train_policies,
                             torch, cfg, params_f32, rm)
-    del rm
     elastic_launches, agg_w6 = timed(sec, "train_elastic",
                                      phase_train_elastic, torch, cfg,
                                      params_f32)
@@ -3617,7 +4330,18 @@ def main() -> int:
                            xcfg, xparams)
     timed(sec, "serve_xlstm_parity", phase_xlstm_parity, torch, xcfg,
           xparams)
+    mlstm_grad = timed(sec, "mlstm_grad", phase_mlstm_grad, torch)
+    xtrain_launches = timed(sec, "train_xlstm", phase_train_xlstm, torch,
+                            xcfg, xparams, rm)
     del xparams
+    timed(sec, "train_xlstm_parity", phase_train_xlstm_parity, torch, xcfg)
+    mcfg = get_config("deepseek-moe-16b")
+    moe_serve_launches = timed(sec, "serve_moe", phase_serve_moe, torch, mcfg)
+    timed(sec, "serve_moe_parity", phase_serve_moe_parity, torch, mcfg)
+    moe_train_launches, agg_moe, adam_moe = timed(
+        sec, "train_moe", phase_train_moe, torch, mcfg, rm)
+    del rm
+    timed(sec, "train_moe_parity", phase_train_moe_parity, torch, mcfg)
     emit("seconds", **sec, total=time.perf_counter() - t_start)
 
     def launches(name):
@@ -3629,7 +4353,10 @@ def main() -> int:
                    "train_elastic": elastic_launches.get(name, 0),
                    "train_multi_job": multi_launches.get(name, 0),
                    "serve_xlstm": xlstm_launches.get(name, 0),
-                   "supervised": supervised_launches.get(name, 0)}
+                   "supervised": supervised_launches.get(name, 0),
+                   "train_xlstm": xtrain_launches.get(name, 0),
+                   "serve_moe": moe_serve_launches.get(name, 0),
+                   "train_moe": moe_train_launches.get(name, 0)}
         return sum(by_path.values()), by_path
 
     def worst(cases, head):
@@ -3654,17 +4381,25 @@ def main() -> int:
              flash_err, head, HEADLINE_CASE, flash_extra),
             ("masked_grad_agg", "src/repro/kernels/masked_grad_agg.py:32",
              agg_err, agg_head, AGG_HEADLINE,
-             {f"w{w}_{k}": agg[k] for w, agg in ((6, agg_w6), (4, agg_w4))
+             {f"{w}_{k}": agg[k] for w, agg in (("w6", agg_w6),
+                                                ("w4", agg_w4),
+                                                ("moe_w8", agg_moe))
               for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                        "max_abs_err")}),
+                        "max_abs_err")} | {"moe_w8_N": agg_moe["N"]}),
             ("fused_adam", "src/repro/kernels/fused_adam.py:40", adam_err,
-             adam_head, ADAM_HEADLINE, {}),
+             adam_head, ADAM_HEADLINE,
+             {f"moe_{k}": adam_moe[k] for k in ("params", "ms", "plain_ms",
+                                                "library_ms", "bound_ms")}),
             ("mlstm_chunk", "src/repro/kernels/mlstm_chunk.py:87",
              mlstm_err, mlstm[MLSTM_HEADLINE], MLSTM_HEADLINE,
              {**mlstm_extra,
               **{k: mlstm[MLSTM_HEADLINE][k]
                  for k in ("path", "fma_floor_ms",
-                           "cuda_kernels_per_call")}})):
+                           "cuda_kernels_per_call")},
+              "bwd_case": MLSTM_GRAD_HEADLINE,
+              **{k: mlstm_grad[MLSTM_GRAD_HEADLINE][k]
+                 for k in ("fwd_ms", "bwd_ms", "bwd_bound_ms",
+                           "bwd_bound_by")}})):
         total, by_path = launches(name)
         rows.append({
             "name": name, "route": "cuda",

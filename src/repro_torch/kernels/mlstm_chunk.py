@@ -20,10 +20,14 @@ one by dtype, head dim and alignment, a pure function of the inputs'
 shapes, tested without a card.  The wgmma path makes two CUDA kernels a
 call (the chunk states, then the outputs), the CUDA-core path one.
 
-A CPU tensor goes to the plain version (``mlstm_plain.linear_recurrence``).
-A CUDA tensor launches the kernel or raises; nothing falls back.  The
-kernel has no backward: on the card, a call that would need a gradient
-raises.
+A CPU tensor goes to the plain version (``mlstm_plain.linear_recurrence``),
+which autograd differentiates as it is.  A CUDA tensor launches the kernel
+or raises; nothing falls back.  On the card, a call that needs a gradient
+(grad mode on and an input that requires one: xLSTM training) goes through
+``MLSTMChunk``: the kernel forward, and a backward that recomputes the
+plain recurrence in f32 and differentiates it.  The JAX package has no
+Pallas backward either: its xLSTM gradient is XLA's autodiff of the jnp
+``ssm.linear_recurrence``, so a Hopper backward is later work.
 """
 from __future__ import annotations
 
@@ -110,11 +114,6 @@ def _launch(q, k, v, g, i):
         if t.stride(3) != 1:
             raise ValueError(f"mlstm_chunk: {name} must be contiguous in "
                              f"head_dim; strides {t.stride()}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (q, k, v, g, i)):
-        raise NotImplementedError(
-            "mlstm_chunk has no backward kernel: xLSTM training on the card "
-            "waits for its autograd Function (ROADMAP, xLSTM training)")
     f32 = dict(dtype=torch.float32, device=q.device)
     y = torch.empty((B, S, H, hd), **f32)
     C = torch.empty((B, H, hd, hd), **f32)
@@ -148,11 +147,58 @@ def _launch(q, k, v, g, i):
     return y, ScanState(loga=loga, m=m, C=C, n=n)
 
 
+class MLSTMChunk(torch.autograd.Function):
+    """``mlstm_chunk`` with a gradient, for training.
+
+    The forward is the kernel on a CUDA tensor (the plain version on a CPU
+    one) and returns y and the final state's four tensors.  The backward
+    recomputes ``linear_recurrence`` in f32 from the saved q, k, v, g, i
+    and differentiates it, as ``FlashAttention.backward`` does with the
+    plain attention; each gradient comes back in its input's dtype.  The
+    final state takes no gradient: a gradient that reaches it raises
+    rather than being dropped (its outputs stay in the graph for that
+    reason, where ``mark_non_differentiable`` would make a loss that reads
+    both y and the state lose the state's part without a word).
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, g, i):
+        ctx.save_for_backward(q, k, v, g, i)
+        ctx.set_materialize_grads(False)
+        if q.is_cuda:
+            y, st = _launch(q, k, v, g, i)
+        else:
+            y, st = linear_recurrence(q, k, v, g, i)
+        return (y, *st)
+
+    @staticmethod
+    def backward(ctx, dy, *dstate):
+        if any(d is not None for d in dstate):
+            raise RuntimeError(
+                "mlstm_chunk: the final ScanState takes no gradient (it is "
+                "the decode cache); differentiate through y only")
+        if dy is None:
+            return (None,) * 5
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(need) for t, need in
+                      zip(ctx.saved_tensors, ctx.needs_input_grad)]
+            y, _ = linear_recurrence(*(t.float() for t in leaves))
+            want = [t for t in leaves if t.requires_grad]
+            grads = iter(torch.autograd.grad(y, want, dy))
+        return tuple(next(grads) if t.requires_grad else None
+                     for t in leaves)
+
+
 def mlstm_chunk(q, k, v, g, i):
     """q/k/v: (B, S, H, hd); g/i: (B, S, H) f32 log gates ->
-    (y (B, S, H, hd) f32, final ``ScanState``)."""
+    (y (B, S, H, hd) f32, final ``ScanState``).  On the card a call that
+    needs a gradient goes through :class:`MLSTMChunk`."""
     _check(q, k, v, g, i)
     if q.is_cuda:
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (q, k, v, g, i)):
+            y, *st = MLSTMChunk.apply(q, k, v, g, i)
+            return y, ScanState(*st)
         return _launch(q, k, v, g, i)
     if q.device.type == "cpu":
         return linear_recurrence(q, k, v, g, i)

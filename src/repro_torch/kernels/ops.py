@@ -27,7 +27,11 @@ def mlstm(q, k, v, g, i):
     """Normalized mLSTM over q/k/v (B, S, H, hd) and f32 log gates g/i
     (B, S, H) -> (y (B, S, H, hd) f32, final ``ScanState``).  JAX's
     ``ops.mlstm`` returns y alone; the port's prefill also needs the state
-    for its decode cache."""
+    for its decode cache.  With grad mode on and an input that requires a
+    gradient (training), a CUDA tensor goes through the autograd Function
+    ``MLSTMChunk`` (the kernel forward, the plain recurrence's backward)
+    and a CPU tensor through ``linear_recurrence``, which autograd
+    differentiates directly."""
     return mlstm_chunk(q, k, v, g, i)
 
 

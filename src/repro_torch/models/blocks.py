@@ -1,7 +1,12 @@
-"""Layer blocks: dense ``attn_mlp``, xLSTM ``mlstm`` and ``slstm``.
+"""Layer blocks: dense ``attn_mlp``, MoE ``attn_moe`` and ``attn_dense``,
+xLSTM ``mlstm`` and ``slstm``.
 
-Twin of ``repro.models.blocks`` for the dense and xLSTM families.  Contract:
-``apply_block(cfg, spec, params, x, ctx, cache) -> (x, cache')``
+Twin of ``repro.models.blocks`` for the dense, MoE and xLSTM families.
+Contract: ``block_forward(cfg, spec, params, x, ctx, cache) -> (x,
+cache', aux)``, the reference's ``apply_block``, where ``aux`` is the
+layer's f32 load-balance loss for ``attn_moe`` and None for the kinds
+that have none (the reference's zero); ``apply_block`` returns ``(x,
+cache')`` alone.
 
   * train:   cache None -> None (nothing is cached)
   * prefill: cache None -> freshly built cache
@@ -22,12 +27,14 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as S
 
 
 @dataclass(frozen=True)
 class LayerSpec:
-    kind: str        # attn_mlp | mlstm | slstm; the others raise
+    kind: str        # attn_mlp | attn_moe | attn_dense | mlstm | slstm;
+    #                  hybrid and dec raise
     window: int = 0  # 0 = full attention
 
 
@@ -120,22 +127,45 @@ def _slstm_block(cfg, p, x, ctx, cache):
     return x + L.apply_mlp(cfg, p["mlp"], h1), new_cache
 
 
-def apply_block(cfg, spec: LayerSpec, p, x, ctx: Ctx, cache):
-    if spec.kind == "mlstm":
-        return _mlstm_block(cfg, p, x, ctx, cache)
-    if spec.kind == "slstm":
-        return _slstm_block(cfg, p, x, ctx, cache)
-    if spec.kind != "attn_mlp":
-        raise NotImplementedError(
-            f"block kind {spec.kind!r} is not ported yet: the port covers "
-            f"the dense attn_mlp and the xLSTM mlstm/slstm blocks; MoE, "
-            f"hybrid and encoder-decoder blocks come with their own later "
-            f"slices")
+def _attn_ffn_block(cfg, spec, p, x, ctx, cache):
+    """Attention then an FFN: the dense MLP (``attn_mlp``; ``attn_dense``,
+    deepseek's first layer, with ``dense_d_ff``) or the MoE (``attn_moe``,
+    whose aux it returns)."""
     h = L.apply_norm(cfg, p["norm1"], x)
     attn_cache = cache["attn"] if cache else None
     y, attn_cache = _attn_sublayer(cfg, p["attn"], h, ctx, attn_cache,
                                    window=spec.window)
     x = x + y
     h = L.apply_norm(cfg, p["norm2"], x)
-    x = x + L.apply_mlp(cfg, p["mlp"], h)
-    return x, ({"attn": attn_cache} if attn_cache is not None else None)
+    if spec.kind == "attn_moe":
+        y, aux = MOE.moe_apply(cfg, p["moe"], h)
+    else:
+        y, aux = L.apply_mlp(cfg, p["mlp"], h), None
+    x = x + y
+    return x, ({"attn": attn_cache} if attn_cache is not None else None), aux
+
+
+def block_forward(cfg, spec: LayerSpec, p, x, ctx: Ctx, cache):
+    """(x, cache', aux): aux the layer's f32 load-balance loss for
+    ``attn_moe``, None for every other kind (a model of other kinds makes
+    no zero tensor a layer)."""
+    aux = None
+    if spec.kind == "mlstm":
+        x, cache = _mlstm_block(cfg, p, x, ctx, cache)
+    elif spec.kind == "slstm":
+        x, cache = _slstm_block(cfg, p, x, ctx, cache)
+    elif spec.kind in ("attn_mlp", "attn_moe", "attn_dense"):
+        x, cache, aux = _attn_ffn_block(cfg, spec, p, x, ctx, cache)
+    else:
+        raise NotImplementedError(
+            f"block kind {spec.kind!r} is not ported yet: the port covers "
+            f"the dense attn_mlp, the MoE attn_moe/attn_dense and the "
+            f"xLSTM mlstm/slstm blocks; hybrid and encoder-decoder blocks "
+            f"come with their own later slices")
+    return x, cache, aux
+
+
+def apply_block(cfg, spec: LayerSpec, p, x, ctx: Ctx, cache):
+    """(x, cache'): :func:`block_forward` without the aux."""
+    x, cache, _ = block_forward(cfg, spec, p, x, ctx, cache)
+    return x, cache

@@ -1,7 +1,7 @@
 """Model assembly: layer specs, init, train/prefill/decode entry points.
 
-Twin of ``repro.models.model`` for the dense LM and xLSTM families on
-one device.  Where JAX stacks the layers of a segment and runs them under
+Twin of ``repro.models.model`` for the dense LM, MoE and xLSTM families
+on one device.  Where JAX stacks the layers of a segment and runs them under
 ``jax.lax.scan``, the port keeps one parameter dict per layer
 (``params["layers"]``) and loops over them in Python.
 
@@ -20,7 +20,8 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.blocks import (Ctx, LayerSpec, apply_block,
+from repro_torch.models import moe as MOE
+from repro_torch.models.blocks import (Ctx, LayerSpec, block_forward,
                                        slstm_ff_dim)
 
 
@@ -89,15 +90,18 @@ def _dtype(cfg):
 def init_model(cfg, generator: torch.Generator, device=None, dtype=None):
     """Seeded init with the JAX package's distributions (not its bits).
 
-    Every weight is drawn in f32 from ``generator`` on the CPU, then cast
-    to ``dtype`` and moved to ``device``: one seed gives the same weights
-    on every device.
+    Every weight is drawn in f32 from ``generator`` on the generator's own
+    device, then cast to ``dtype`` and moved to ``device``: one CPU seed
+    gives the same weights on every device, and a CUDA generator draws a
+    model too large for the host's memory in f32 (full-depth
+    deepseek-moe-16b) on the card, one weight at a time.
     """
     device = resolve_device(device)
     dtype = dtype or _dtype(cfg)
 
     def normal(shape, std):
-        t = torch.randn(shape, generator=generator, dtype=torch.float32)
+        t = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=generator.device)
         return (t * std).to(device=device, dtype=dtype)
 
     def dense(d_in, d_out):
@@ -124,7 +128,7 @@ def init_model(cfg, generator: torch.Generator, device=None, dtype=None):
             p["b_down"] = const((d,), 0.0)
         return p
 
-    def attn_mlp():
+    def attention():
         attn = {"wq": dense(d, qd), "wk": dense(d, kvd), "wv": dense(d, kvd),
                 "wo": dense(qd, d)}
         if cfg.attn_bias:
@@ -135,8 +139,16 @@ def init_model(cfg, generator: torch.Generator, device=None, dtype=None):
         if cfg.qk_norm:
             attn["q_norm"] = const((cfg.head_dim,), 1.0)
             attn["k_norm"] = const((cfg.head_dim,), 1.0)
-        return {"norm1": norm(d), "attn": attn, "norm2": norm(d),
-                "mlp": mlp(cfg.d_ff)}
+        return {"norm1": norm(d), "attn": attn, "norm2": norm(d)}
+
+    def attn_mlp():
+        return dict(attention(), mlp=mlp(cfg.d_ff))
+
+    def attn_dense():   # deepseek's first layer
+        return dict(attention(), mlp=mlp(cfg.dense_d_ff or cfg.d_ff))
+
+    def attn_moe():
+        return dict(attention(), moe=MOE.moe_init(cfg, normal))
 
     def mlstm():
         di, nh = cfg.ssm_expand * d, cfg.n_heads
@@ -161,12 +173,15 @@ def init_model(cfg, generator: torch.Generator, device=None, dtype=None):
                 "norm2": norm(d), "mlp": mlp(slstm_ff_dim(cfg))}
 
     d, qd, kvd = cfg.d_model, cfg.qkv_dim, cfg.kv_dim
-    make = {"attn_mlp": attn_mlp, "mlstm": mlstm, "slstm": slstm}
+    make = {"attn_mlp": attn_mlp, "attn_dense": attn_dense,
+            "attn_moe": attn_moe, "mlstm": mlstm, "slstm": slstm}
     layers = []
     for spec in layer_specs(cfg):
         if spec.kind not in make:
             raise NotImplementedError(
-                f"block kind {spec.kind!r} is not ported yet")
+                f"block kind {spec.kind!r} is not ported yet: hybrid "
+                f"(Hymba) and encoder-decoder (whisper) blocks come with "
+                f"their own later slices")
         layers.append(make[spec.kind]())
     params = {"embed": {"table": normal((cfg.vocab_size, d), 0.02)},
               "layers": layers, "final_norm": norm(d)}
@@ -235,7 +250,8 @@ def forward(cfg, params, batch, mode: str = "prefill", caches=None,
     and no caches; prefill gives the last position's logits (B, 1, V) and
     fresh caches; decode the next logits and the updated caches (KV caches
     written in place).  ``aux`` is the auxiliary loss, 0 for the dense and
-    xLSTM families.  The JAX forward rematerializes each layer in training;
+    xLSTM families, the sum over the MoE layers (f32) for the MoE family.
+    The JAX forward rematerializes each layer in training;
     at the port's sizes (one H100, 80 GB) the activations fit, so nothing
     is recomputed.
     """
@@ -249,16 +265,18 @@ def forward(cfg, params, batch, mode: str = "prefill", caches=None,
     x = embed_tokens(cfg, params, batch["tokens"])
     ctx = Ctx(mode=mode, positions=batch["positions"], pos=pos)
     new_caches = []
+    aux = x.new_zeros((), dtype=torch.float32)
     for i, (spec, p) in enumerate(zip(layer_specs(cfg), params["layers"])):
-        x, c = apply_block(cfg, spec, p, x, ctx,
-                           caches[i] if caches is not None else None)
+        x, c, a = block_forward(cfg, spec, p, x, ctx,
+                                caches[i] if caches is not None else None)
+        if a is not None:
+            aux = aux + a
         new_caches.append(c)
     x = L.apply_norm(cfg, params["final_norm"], x)
     if mode == "prefill":
         # serving needs the last position's logits only: slice BEFORE the
         # head so the (B, S, V) logits tensor never materializes
         x = x[:, -1:]
-    aux = x.new_zeros((), dtype=torch.float32)
     return (lm_logits(cfg, params, x),
             None if mode == "train" else new_caches, aux)
 
