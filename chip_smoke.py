@@ -28,7 +28,12 @@ Phases, one JSON line each; any failure exits non-zero:
                  for y and for a decode step taken from the returned state:
                  xlstm-350m's serve shape (B 4, S 128, H 4, hd 512, bf16),
                  ragged S 100, S 300, S 1, f32, hd 16/32/64 and extreme
-                 gates; each case asserts its path (wgmma or simt) and the
+                 gates; then hymba-1.5b's Mamba heads (unnormalized, scale
+                 1, q/k 16 wide as views broadcast over 25 heads, v 128
+                 wide) at its serve shape (B 4, S 1280, bf16), f32 and S
+                 300, against the plain version and a position-by-position
+                 recurrence_step oracle; each case asserts its path (wgmma
+                 or simt) and the
                  CUDA kernels a call makes (5 profiled calls); kernel /
                  plain ms, the bound (bytes, or operations in the Pallas
                  kernel's chunks over the tensor cores' rates) and the
@@ -213,8 +218,10 @@ Phases, one JSON line each; any failure exits non-zero:
   mlstm_grad     MLSTMChunk (the kernel forward, the plain recurrence's
                  backward) against autograd of the plain path on the card,
                  bf16 q/k/v and f32 gates, at train_xlstm's per-worker
-                 shape (B 2, S 128, H 4, hd 512) and S 300: y and the five
-                 gradients; forward and backward device ms beside the
+                 shape (B 2, S 128, H 4, hd 512) and S 300, and at
+                 train_hymba's (B 2, S 128, H 25, 16/128, unnormalized, q/k
+                 broadcast: the C and B rows' head sums too): y and the
+                 five gradients; forward and backward device ms beside the
                  backward's bound
   train_xlstm    full-width, full-depth xlstm-350m (bf16) trained by the
                  psum step under train_dmm's DMM controller
@@ -252,6 +259,32 @@ Phases, one JSON line each; any failure exits non-zero:
                  the same depth-2 model in f32, W 2, seq 32 x batch 4, 2
                  steps: train_parity's comparisons and the aux, CPU against
                  the card; the host's resident bytes
+  serve_hymba    full-depth hymba-1.5b (32 layers, 1,642,503,200
+                 parameters, bf16, drawn on the card) through
+                 ServeEngine.generate: 4 x 1280-token prompts (past the
+                 1024-token window of its 29 windowed layers), 32 greedy
+                 new tokens; asserts 32 x 33 flash and 32 mlstm_chunk
+                 launches and ids in range; prefill ms, ms per token,
+                 tokens/s, peak memory
+  serve_hymba_profile
+                 the device's busy share of a short Hymba request
+  serve_hymba_parity
+                 hymba-1.5b at full width and depth 2 (a global and a
+                 windowed layer), f32, 2 x 1100-token prompts: prefill
+                 logits within 1e-4 and equal greedy ids, CPU against the
+                 card
+  train_hymba    hymba-1.5b at depth 24 (1,257,478,600 parameters, bf16)
+                 under train_dmm's DMM controller: seq 128 x batch 16, W
+                 8, psum, fused AdamW; 2 steps, then a replay from the
+                 same state that must match them bit for bit (losses,
+                 cutoffs, parameters) and goes on to 3 steps, each
+                 asserting its launches (flash and mlstm_chunk 24 x 8,
+                 masked_grad_agg 1, fused_adam 1) and a finite loss; wall
+                 ms, peak memory; the device's busy share of one more step
+  train_hymba_parity
+                 the depth-2 model in f32, W 2, seq 32 x batch 4, 2 steps:
+                 train_parity's comparisons at MoE's bars (the second
+                 step's gradient and m at 5e-4), CPU against the card
 
 Then the wall seconds of every phase, a ``{"kernels": [...]}`` summary
 line, the card's name and power limit from nvidia-smi, and
@@ -357,6 +390,17 @@ MLSTM_CASES = [
     ("extreme_gates", 4, 128, 4, 512, "bfloat16", "extreme", "wgmma"),
 ]
 MLSTM_HEADLINE = "serve_s128"
+# (name, B, S, H, dq, dv, dtype, path the case must take): hymba-1.5b's
+# Mamba heads, the unnormalized form at scale 1 (HYMBA_FORM), q/k 16 wide
+# as views broadcast over the 25 heads, v 128 wide.  A list of its own:
+# tests/test_torch_mlstm_plan.py reads MLSTM_CASES' rows as they are.
+MLSTM_HYMBA_CASES = [
+    ("hymba_serve_s1280", 4, 1280, 25, 16, 128, "bfloat16", "simt"),
+    ("hymba_f32_s128", 2, 128, 25, 16, 128, "float32", "simt"),
+    ("hymba_s300", 2, 300, 25, 16, 128, "bfloat16", "simt"),
+]
+MLSTM_HYMBA_HEADLINE = "hymba_serve_s1280"
+HYMBA_FORM = {"normalize": False, "scale": 1.0}
 # the mLSTM yardstick counts the work in the Pallas kernel's chunks,
 # min(128, S) (src/repro/kernels/mlstm_chunk.py:88), whatever chunk the
 # port's kernel takes
@@ -3477,32 +3521,45 @@ def _mlstm_inputs(torch, B, S, H, hd, dtname, gates, gen):
     return q, k, v, F.logsigmoid(f), i
 
 
-def mlstm_ops(B, S, H, hd, chunk):
+def mlstm_ops(B, S, H, hd, chunk, dv=None):
     """Operations of the chunkwise algorithm at ``chunk``, as (q k^T, the
     rest): per (b, h) and chunk of L positions, q k^T and (W q k^T) v over
-    the L(L+1)/2 causal pairs, and the two (L, hd) x (hd, hd) products (q C
+    the L(L+1)/2 causal pairs, and the two (L, hd) x (hd, dv) products (q C
     with the entering state, which is zero for the first chunk, and the
-    state update)."""
+    state update).  ``dv`` (None: hd) is v's width."""
+    dv = hd if dv is None else dv
     qk = rest = 0
     for c0 in range(0, S, chunk):
         L = min(chunk, S - c0)
         qk += L * (L + 1) * hd
-        rest += L * (L + 1) * hd + 2 * L * hd * hd * (2 if c0 else 1)
+        rest += L * (L + 1) * dv + 2 * L * hd * dv * (2 if c0 else 1)
     return B * H * qk, B * H * rest
 
 
-def mlstm_bound(B, S, H, hd, dtname):
+def mlstm_in_bytes(B, S, H, hd, dtname, dv=None, qk_heads=None):
+    """Bytes of one call's inputs, each read once: q/k (``qk_heads`` of
+    them in memory, None: H; 1 for Hymba's broadcast), v and the f32
+    gates."""
+    elt = 2 if dtname == "bfloat16" else 4
+    dv = hd if dv is None else dv
+    qk_heads = H if qk_heads is None else qk_heads
+    return (2 * B * S * qk_heads * hd * elt + B * S * H * dv * elt
+            + 2 * B * S * H * 4)
+
+
+def mlstm_bound(B, S, H, hd, dtname, dv=None, qk_heads=None):
     """The least time the card could take for one call, in ms, with its
     basis: the bytes (q/k/v and the gates read once, y and the final state
     written once) over 3.35 TB/s, against the operations (counted in the
     Pallas kernel's chunks) over the tensor cores' rates, 989 TFLOP/s for
     q k^T with bf16 operands and 495 (TF32) for the products with an f32
-    operand; the same count over 67 TFLOP/s of f32 FMAs beside it."""
-    elt = 2 if dtname == "bfloat16" else 4
-    nbytes = (3 * B * S * H * hd * elt + 2 * B * S * H * 4   # in
-              + B * S * H * hd * 4                           # y
-              + 4 * B * H * (hd * hd + hd + 2))              # state
-    qk, rest = mlstm_ops(B, S, H, hd, PALLAS_MLSTM_CHUNK)
+    operand; the same count over 67 TFLOP/s of f32 FMAs beside it.  ``dv``
+    and ``qk_heads`` as ``mlstm_in_bytes`` takes them."""
+    dv = hd if dv is None else dv
+    nbytes = (mlstm_in_bytes(B, S, H, hd, dtname, dv, qk_heads)   # in
+              + B * S * H * dv * 4                                # y
+              + 4 * B * H * (hd * dv + hd + 2))                   # state
+    qk, rest = mlstm_ops(B, S, H, hd, PALLAS_MLSTM_CHUNK, dv)
     qk_rate = PEAK_OPS["bfloat16"] if dtname == "bfloat16" else TF32_OPS
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = (qk / qk_rate + rest / TF32_OPS) * 1e3
@@ -3514,7 +3571,53 @@ def mlstm_bound(B, S, H, hd, dtname):
             "chunk": PALLAS_MLSTM_CHUNK}
 
 
+def _mamba_inputs(torch, B, S, H, dq, dv, dtname, gen):
+    """Hymba's Mamba-head inputs as its block makes them: C and B rows
+    (B, S, dq) in ``dtname``, shared by every head, v (B, S, H, dv), and
+    the f32 gates of dt = softplus(x - 2) (dt_bias -2): g = -dt exp(a_log),
+    i = log(dt + 1e-9).  Returns (c, b, v, g, i); ``_heads`` broadcasts
+    c/b to q/k."""
+    import torch.nn.functional as F
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    dt = getattr(torch, dtname)
+    c, b = (0.5 * randn(B, S, dq)).to(dt), (0.5 * randn(B, S, dq)).to(dt)
+    v = randn(B, S, H, dv).to(dt)
+    dts = F.softplus(randn(B, S, H) - 2.0)
+    g = -dts * torch.exp(0.3 * randn(H))
+    return c, b, v, g, torch.log(dts + 1e-9)
+
+
+def _heads(t, H):
+    """(B, S, d) -> a (B, S, H, d) view with head stride 0."""
+    return t[:, :, None].expand(-1, -1, H, -1)
+
+
+def _unnorm_oracle(torch, q, k, v, g, i):
+    """The unnormalized recurrence position by position: recurrence_step
+    from the identity state, the sequential oracle of Hymba's form."""
+    from repro_torch.models.ssm import NEG, ScanState, recurrence_step
+
+    B, S, H, dq = q.shape
+    f32 = dict(dtype=torch.float32, device=q.device)
+    st = ScanState(loga=torch.zeros((B, H), **f32),
+                   m=torch.full((B, H), NEG, **f32),
+                   C=torch.zeros((B, H, dq, v.shape[-1]), **f32),
+                   n=torch.zeros((B, H, dq), **f32))
+    ys = []
+    for t in range(S):
+        y, st = recurrence_step(st, q[:, t], k[:, t], v[:, t], g[:, t],
+                                i[:, t], **HYMBA_FORM)
+        ys.append(y)
+    return torch.stack(ys, dim=1)
+
+
 def phase_mlstm(torch):
+    """MLSTM_CASES (the xLSTM's normalized form), then MLSTM_HYMBA_CASES
+    (Hymba's unnormalized, unequal-width form with q/k broadcast over the
+    heads; its sequential oracle is ``_unnorm_oracle``)."""
     from repro_torch.kernels.flash_attention import aligned16
     from repro_torch.kernels.mlstm_chunk import (PATH_KERNELS, choose_path,
                                                  mlstm_chunk)
@@ -3525,22 +3628,33 @@ def phase_mlstm(torch):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     side = torch.cuda.Stream()
     results = {}
-    for name, B, S, H, hd, dtname, gates, want_path in MLSTM_CASES:
-        q, k, v, g, i = _mlstm_inputs(torch, B, S + 1, H, hd, dtname, gates,
-                                      gen)
+    cases = ([(name, B, S, H, hd, hd, dtname, gates, path, {})
+              for name, B, S, H, hd, dtname, gates, path in MLSTM_CASES]
+             + [(name, B, S, H, dq, dv, dtname, "mamba", path, HYMBA_FORM)
+                for name, B, S, H, dq, dv, dtname, path in MLSTM_HYMBA_CASES])
+    for name, B, S, H, hd, dv, dtname, gates, want_path, form in cases:
+        if form:
+            c, b, v, g, i = _mamba_inputs(torch, B, S + 1, H, hd, dv,
+                                          dtname, gen)
+            q, k = _heads(c, H), _heads(b, H)
+        else:
+            q, k, v, g, i = _mlstm_inputs(torch, B, S + 1, H, hd, dtname,
+                                          gates, gen)
         head = [t[:, :S] for t in (q, k, v, g, i)]
         step = [t[:, S] for t in (q, k, v, g, i)]
-        path = choose_path(q.dtype, hd, aligned16(*head[:3]))
+        path = choose_path(q.dtype, hd, aligned16(*head[:3]), dv=dv,
+                           normalize=form.get("normalize", True))
         check(path == want_path, f"mlstm {name}: takes {path}, not "
               f"{want_path}")
-        y, st = mlstm_chunk(*head)
-        want, pst = linear_recurrence(*head)
-        oracle = reference_mlstm(q, k, v, g, i)
-        ys, _ = recurrence_step(st, *step)
-        ws, _ = recurrence_step(pst, *step)
+        y, st = mlstm_chunk(*head, **form)
+        want, pst = linear_recurrence(*head, **form)
+        oracle = (_unnorm_oracle(torch, q, k, v, g, i) if form
+                  else reference_mlstm(q, k, v, g, i))
+        ys, _ = recurrence_step(st, *step, **form)
+        ws, _ = recurrence_step(pst, *step, **form)
         torch.cuda.synchronize()
-        check(y.shape == (B, S, H, hd) and y.dtype == torch.float32
-              and st.C.shape == (B, H, hd, hd) and st.n.shape == (B, H, hd)
+        check(y.shape == (B, S, H, dv) and y.dtype == torch.float32
+              and st.C.shape == (B, H, hd, dv) and st.n.shape == (B, H, hd)
               and st.m.shape == (B, H) and st.loga.shape == (B, H),
               f"mlstm {name}: output {tuple(y.shape)} {y.dtype}, state "
               f"{[tuple(t.shape) for t in st]}")
@@ -3559,7 +3673,7 @@ def phase_mlstm(torch):
               f"mlstm {name}: loga off by {loga_err}")
 
         def kern():
-            return mlstm_chunk(*head)
+            return mlstm_chunk(*head, **form)
 
         # the CUDA kernels a call makes, against what its path launches
         per_call = kernels_per_call(torch, kern)
@@ -3570,7 +3684,8 @@ def phase_mlstm(torch):
               f"{sorted(expect)}")
         times = {}
         for label, fn in (("ms", kern),
-                          ("plain_ms", lambda: linear_recurrence(*head))):
+                          ("plain_ms",
+                           lambda: linear_recurrence(*head, **form))):
             times[label] = device_ms(torch, fn, side)
             times["eager_" + label] = eager_ms(torch, fn)
         rec = {"case": name, "shape": [B, S, H, hd], "dtype": dtname,
@@ -3581,7 +3696,10 @@ def phase_mlstm(torch):
                "y_max_abs": oracle[:, :S].abs().max().item(),
                "tol": MLSTM_TOL, **times, "library_ms": None,
                "library": "none: no single PyTorch call computes it",
-               **mlstm_bound(B, S, H, hd, dtname),
+               **mlstm_bound(B, S, H, hd, dtname, dv,
+                             1 if form else None),
+               **({"dv": dv, **form, "qk": "broadcast over H"} if form
+                  else {}),
                "cuda_kernels_per_call": sum(r["per_call"]
                                             for r in per_call.values()),
                "kernel_us": {k: r["us"] for k, r in per_call.items()}}
@@ -3701,9 +3819,11 @@ def phase_xlstm_parity(torch, cfg_full, params_f32):
 # depth 2 under the DMM cutoff.
 # ---------------------------------------------------------------------------
 
-# (name, B, S, H, hd): train_xlstm's per-worker shape and a multi-chunk S
-MLSTM_GRAD_CASES = [("train_b2_s128", 2, 128, 4, 512),
-                    ("s300", 2, 300, 4, 512)]
+# (name, B, S, H, dq, dv, normalize): train_xlstm's per-worker shape and a
+# multi-chunk S; train_hymba's per-worker shape in the Mamba heads' form
+MLSTM_GRAD_CASES = [("train_b2_s128", 2, 128, 4, 512, 512, True),
+                    ("s300", 2, 300, 4, 512, 512, True),
+                    ("hymba_b2_s128", 2, 128, 25, 16, 128, False)]
 MLSTM_GRAD_HEADLINE = "train_b2_s128"
 # the Function's gradients are the plain recurrence's own on the same
 # inputs (its backward recomputes it in f32), each rounded once to its
@@ -3711,6 +3831,11 @@ MLSTM_GRAD_HEADLINE = "train_b2_s128"
 # path on f32 copies of the inputs, rounded the same way; y to the
 # forward's MLSTM_TOL
 MLSTM_GRAD_TOL = 1e-6
+# Hymba's C and B rows get the sum over the 25 heads of the Function's
+# per-head q/k gradients (the broadcast's backward, in bf16): held to one
+# bf16 rounding of that sum against the per-head gradients of the plain
+# path rounded the same way (those per-head gradients at MLSTM_GRAD_TOL)
+HEAD_SUM_TOL = 4e-3
 # train_moe_parity: the first step's gradient (identical params on both
 # devices) at train_parity's 1e-4; the second step's, and m which mixes
 # the two, at 5e-4.  Adam's first update moves every entry whose gradient
@@ -3738,18 +3863,19 @@ def _dmm_controller(rm):
     return ctl
 
 
-def mlstm_bwd_bound(B, S, H, hd, dtname):
+def mlstm_bwd_bound(B, S, H, hd, dtname, dv=None, qk_heads=None):
     """The least time of the mLSTM's backward (dy -> dq, dk, dv, dg, di),
     in ms, with its basis: q/k/v, the gates and dy read once, the five
     gradients written once, over 3.35 TB/s, against twice the forward's
     operations (each product's gradient is two products of its size) at
     the forward's rates; the f32-FMA floor of the same count beside it.
     The plain backward the Function runs also recomputes the forward (one
-    more forward's operations), which the bound leaves out."""
-    elt = 2 if dtname == "bfloat16" else 4
-    nbytes = (2 * (3 * B * S * H * hd * elt + 2 * B * S * H * 4)
-              + B * S * H * hd * 4)
-    qk, rest = mlstm_ops(B, S, H, hd, PALLAS_MLSTM_CHUNK)
+    more forward's operations), which the bound leaves out.  ``dv`` and
+    ``qk_heads`` as ``mlstm_in_bytes`` takes them."""
+    dv = hd if dv is None else dv
+    nbytes = (2 * mlstm_in_bytes(B, S, H, hd, dtname, dv, qk_heads)
+              + B * S * H * dv * 4)
+    qk, rest = mlstm_ops(B, S, H, hd, PALLAS_MLSTM_CHUNK, dv)
     qk_rate = PEAK_OPS["bfloat16"] if dtname == "bfloat16" else TF32_OPS
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 2 * (qk / qk_rate + rest / TF32_OPS) * 1e3
@@ -3765,7 +3891,10 @@ def phase_mlstm_grad(torch):
     and f32 gates: y and the gradients of q, k, v, g, i; the forward's
     device ms (graph replay) and the backward's (the profiler's kernel
     time of one plain recompute-and-differentiate, what the Function's
-    backward runs) beside the backward's bound."""
+    backward runs) beside the backward's bound.  Hymba's case feeds q/k as
+    views of its C and B rows broadcast over the heads, in the
+    unnormalized form: the per-head q/k gradients are held like the
+    others, and the rows' gradients (their head sum) at HEAD_SUM_TOL."""
     from repro_torch.kernels import build
     from repro_torch.kernels.mlstm_chunk import MLSTMChunk, mlstm_chunk
     from repro_torch.kernels.mlstm_plain import linear_recurrence
@@ -3773,25 +3902,36 @@ def phase_mlstm_grad(torch):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
     side = torch.cuda.Stream()
     results = {}
-    for name, B, S, H, hd in MLSTM_GRAD_CASES:
-        xs = _mlstm_inputs(torch, B, S, H, hd, "bfloat16", "normal", gen)
-        r = torch.randn((B, S, H, hd), generator=gen, device="cuda")
+    for name, B, S, H, hd, dv, norm in MLSTM_GRAD_CASES:
+        form = {} if norm else HYMBA_FORM
+        if norm:
+            xs = _mlstm_inputs(torch, B, S, H, hd, "bfloat16", "normal", gen)
+        else:
+            xs = _mamba_inputs(torch, B, S, H, hd, dv, "bfloat16", gen)
+        r = torch.randn((B, S, H, dv), generator=gen, device="cuda")
         leaves = [t.detach().requires_grad_(True) for t in xs]
+        # what the Function sees: q/k themselves, or the rows' broadcast
+        args = leaves if norm else [_heads(leaves[0], H),
+                                    _heads(leaves[1], H), *leaves[2:]]
         build.LAUNCHES.clear()
-        y, *_ = MLSTMChunk.apply(*leaves)
-        got = torch.autograd.grad((y * r).sum(), leaves)
+        y, *_ = MLSTMChunk.apply(*args, *form.values())
+        rows = [] if norm else leaves[:2]   # C and B rows of the heads
+        got = torch.autograd.grad((y * r).sum(), args + rows)
+        got, rows = got[:5], got[5:]
         check(build.LAUNCHES["mlstm_chunk"] == 1,
               f"mlstm_grad {name}: {dict(build.LAUNCHES)} launches")
-        # the plain path on f32 copies of the same inputs: its gradients
-        # rounded once to each input's dtype are what the Function returns
-        plain = [t.detach().float().requires_grad_(True) for t in xs]
-        yp, _ = linear_recurrence(*plain)
+        # the plain path on f32 copies of the same inputs (q/k per head):
+        # its gradients rounded once to each input's dtype are what the
+        # Function returns
+        plain = [t.detach().float().contiguous().requires_grad_(True)
+                 for t in args]
+        yp, _ = linear_recurrence(*plain, **form)
         want = torch.autograd.grad((yp * r).sum(), plain)
         torch.cuda.synchronize()
         y_ex = _allclose_excess(torch, y, yp, MLSTM_TOL, MLSTM_TOL).item()
         check(y_ex <= MLSTM_TOL, f"mlstm_grad {name}: y off by {y_ex}")
         errs = {}
-        for key, a, b, x in zip("qkvgi", got, want, xs):
+        for key, a, b, x in zip("qkvgi", got, want, args):
             check(a.dtype == x.dtype, f"mlstm_grad {name}: d{key} is "
                   f"{a.dtype}, its input {x.dtype}")
             check(bool(torch.isfinite(a).all()),
@@ -3800,29 +3940,40 @@ def phase_mlstm_grad(torch):
                                     [b.to(a.dtype).float()])
             check(errs[key] <= MLSTM_GRAD_TOL, f"mlstm_grad {name}: d{key} "
                   f"off by {errs[key]} of its scale")
+        if not norm:   # the broadcast's backward: each row's head sum
+            for key, a, b in zip(("c", "b"), rows, want[:2]):
+                errs[key] = _scaled_err(torch, [a.float()], [
+                    b.to(a.dtype).sum(dim=2).float()])
+                check(errs[key] <= HEAD_SUM_TOL, f"mlstm_grad {name}: "
+                      f"d{key} off by {errs[key]} of its scale")
+        fwd_args = [t.detach() for t in args]
 
         def bwd():
             with torch.enable_grad():
-                ls = [t.detach().requires_grad_(True) for t in xs]
-                out, _ = linear_recurrence(*(t.float() for t in ls))
+                ls = [t.detach().requires_grad_(True) for t in fwd_args]
+                out, _ = linear_recurrence(*(t.float() for t in ls), **form)
                 return torch.autograd.grad(out, ls, r)
 
-        fwd_ms = device_ms(torch, lambda: mlstm_chunk(*xs), side)
+        qk_heads = None if norm else 1
+        fwd_ms = device_ms(torch, lambda: mlstm_chunk(*fwd_args, **form),
+                           side)
         bwd_eager = eager_ms(torch, bwd, reps=5, warmup=2)
         prof = device_profile(torch, bwd, n_top=5)
-        rec = {"case": name, "shape": [B, S, H, hd], "dtype": "bfloat16",
+        rec = {"case": name, "shape": [B, S, H, hd], "dv": dv,
+               "dtype": "bfloat16", "normalize": norm,
                "y_max_abs_err": (y - yp).abs().max().item(),
-               "grad_scaled_err": errs, "tol": {"y": MLSTM_TOL,
-                                                "grad": MLSTM_GRAD_TOL},
+               "grad_scaled_err": errs,
+               "tol": {"y": MLSTM_TOL, "grad": MLSTM_GRAD_TOL,
+                       **({} if norm else {"rows": HEAD_SUM_TOL})},
                "fwd_ms": fwd_ms, "bwd_ms": prof["device_ms"],
                "bwd_eager_ms": bwd_eager,
                "bwd_device_events": prof["device_events"],
                "bwd_top": prof["top"],
-               **mlstm_bound(B, S, H, hd, "bfloat16"),
-               **mlstm_bwd_bound(B, S, H, hd, "bfloat16")}
+               **mlstm_bound(B, S, H, hd, "bfloat16", dv, qk_heads),
+               **mlstm_bwd_bound(B, S, H, hd, "bfloat16", dv, qk_heads)}
         results[name] = rec
         emit("mlstm_grad", **rec)
-        del xs, r, leaves, y, got, plain, yp, want
+        del xs, r, leaves, args, y, got, rows, plain, yp, want, fwd_args
     torch.cuda.empty_cache()
     return results
 
@@ -3926,10 +4077,11 @@ class _DropCount:
                 "dropped_share": (self.total - kept) / max(self.total, 1)}
 
 
-def init_moe(torch, cfg, dtype, seed):
-    """deepseek-moe-16b's weights drawn on the card by a CUDA generator,
-    one weight at a time (the full model in f32 would need 65 GB of
-    host memory)."""
+def init_on_card(torch, cfg, dtype, seed):
+    """A model's weights drawn on the card by a CUDA generator, one weight
+    at a time: deepseek-moe-16b in f32 would need 65 GB of host memory,
+    and the host's draw of hymba-1.5b's 1.6e9 normals would take seconds
+    of its phase."""
     from repro_torch.models import model as M
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -3951,7 +4103,7 @@ def phase_serve_moe(torch, cfg):
 
     B, S, n_new = 4, 128, 32
     t0 = time.perf_counter()
-    params = init_moe(torch, cfg, torch.bfloat16, SEED)
+    params = init_on_card(torch, cfg, torch.bfloat16, SEED)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(x.numel() for x in tree.leaves(params))
@@ -4017,7 +4169,7 @@ def phase_serve_moe_parity(torch, cfg_full):
     from repro_torch.serving.engine import ServeEngine
 
     cfg = dataclasses.replace(cfg_full, n_layers=2, dtype="float32")
-    params = cast(init_moe(torch, cfg, torch.float32, SEED + 11), "cpu",
+    params = cast(init_on_card(torch, cfg, torch.float32, SEED + 11), "cpu",
                   torch.float32)
     torch.cuda.empty_cache()
     S, n_new = 64, 8
@@ -4153,7 +4305,7 @@ def phase_train_moe(torch, cfg_full, rm):
     cfg = dataclasses.replace(cfg_full, n_layers=2)
     W, S, B = 8, 128, 16
     t0 = time.perf_counter()
-    p0 = cast(init_moe(torch, cfg, torch.bfloat16, SEED + 13), "cpu",
+    p0 = cast(init_on_card(torch, cfg, torch.bfloat16, SEED + 13), "cpu",
               torch.bfloat16)
     n_params = sum(x.numel() for x in tree.leaves(p0))
     check(n_params == cfg.n_params(), f"depth-2 deepseek-moe-16b: "
@@ -4258,7 +4410,7 @@ def phase_train_moe_parity(torch, cfg_full):
     cfg = dataclasses.replace(cfg_full, n_layers=2, dtype="float32")
     # drawn on the card, then copied: the CPU's draw of 1.09e9 normals
     # would take seconds of the phase
-    p_cpu = cast(init_moe(torch, cfg, torch.float32, SEED + 14), "cpu",
+    p_cpu = cast(init_on_card(torch, cfg, torch.float32, SEED + 14), "cpu",
                  torch.float32)
     torch.cuda.empty_cache()
     rec, aux = _train_parity(torch, cfg, p_cpu, W=2, S=32, B=4, n_steps=2,
@@ -4271,6 +4423,276 @@ def phase_train_moe_parity(torch, cfg_full):
     _check_train_parity(rec, "train_moe_parity", MOE_PARITY_TOL)
     check(aux_err <= MOE_PARITY_TOL["loss"], f"train_moe_parity: aux "
           f"differs by {aux_err}")
+
+
+# ---------------------------------------------------------------------------
+# Hymba (hymba-1.5b): attention and Mamba heads in parallel in every layer,
+# served at full depth with a prompt past the 1024-token window, trained
+# at depth 24 under the DMM cutoff.
+# ---------------------------------------------------------------------------
+
+# the reference's own tree (jax.eval_shape of repro.models.model.init_model):
+# ArchConfig.n_params() leaves out the Mamba sublayer (ROADMAP, known gaps)
+HYMBA_PARAMS = 1_642_503_200
+HYMBA_TRAIN_DEPTH = 24         # the (8, N) buffer at full depth: 52.6 GB
+HYMBA_TRAIN_PARAMS = 1_257_478_600
+HYMBA_STEPS = 3
+HYMBA_REPLAY = 2
+# depth 2 in f32: the CPU and the card sum in other orders; the xLSTM's
+# and MoE's parity runs (24 and 8 layers) hold 1e-3
+HYMBA_PARITY_LOGIT_ATOL = 1e-4
+# train_hymba_parity: MOE_PARITY_TOL's bars, for its reason.  The first
+# step's gradient (identical params) at 1e-4; the second's, and m which
+# mixes it in, at 5e-4: after Adam's first step the params differ by up
+# to 2 lr where |g| sits at noise.  scripts/torch_hymba_step2_grad.py
+# (PERF.md §6): the second gradients 1.13e-4 of their scale apart (layer
+# 0's mlp w_gate), the CPU's at the card's step-1 params 3.1e-6 from the
+# card's, and 1.12e-4 from the CPU's own: the params' divergence alone
+HYMBA_PARITY_TOL = dict(PARITY_TOL, grad_later=5e-4, m=5e-4)
+
+
+def phase_serve_hymba(torch, cfg):
+    """Full-depth hymba-1.5b (32 layers, bf16, weights drawn on the card)
+    through ServeEngine.generate: 4 prompts x 1280 tokens (the 29 windowed
+    layers' 1024-token window binds), 32 greedy new tokens; asserts 32 x
+    33 flash launches, 32 mlstm_chunk launches (each layer's Mamba
+    prefill) and ids in range; prefill ms, ms per token, tokens/s, peak
+    memory; then the device's busy share of a short request."""
+    from repro_torch import tree
+    from repro_torch.kernels import build
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import ServeEngine
+
+    B, S, n_new = 4, 1280, 32
+    windows = [s.window for s in M.layer_specs(cfg)]
+    check(S > cfg.sliding_window and windows.count(0) == 3,
+          f"hymba serve: prompt {S}, windows {windows}")
+    t0 = time.perf_counter()
+    params = init_on_card(torch, cfg, torch.bfloat16, SEED + 15)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in tree.leaves(params))
+    check(n_params == HYMBA_PARAMS, f"hymba-1.5b: {n_params} parameters, "
+          f"want {HYMBA_PARAMS}")
+    engine = ServeEngine(cfg, params, max_len=S + n_new)
+    prompts = np.random.default_rng(SEED + 16).integers(
+        0, cfg.vocab_size, size=(B, S), dtype=np.int32)
+    engine.generate(prompts, 2)   # warm-up: cuBLAS handles, allocator
+
+    torch.cuda.reset_peak_memory_stats()
+    build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    ids = engine.generate(prompts, n_new)       # ends in one .cpu() copy
+    gen_s = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    want = {"flash_attention": cfg.n_layers * (1 + n_new),
+            "mlstm_chunk": cfg.n_layers}
+    check(launches == want, f"serve_hymba launched {launches}, want {want}")
+    check(ids.shape == (B, n_new) and ids.dtype == np.int32,
+          f"ids {ids.shape} {ids.dtype}")
+    check(bool(np.all((ids >= 0) & (ids < cfg.vocab_size))),
+          "ids out of vocabulary range")
+    peak = torch.cuda.max_memory_allocated()
+
+    toks = torch.as_tensor(prompts, dtype=torch.int64, device="cuda")
+    batch = {"tokens": toks,
+             "positions": torch.arange(S, device="cuda").expand(B, S)}
+    with torch.inference_mode():
+        prefill_ms = eager_ms(torch, lambda: M.prefill(cfg, engine.params,
+                                                       batch), reps=3,
+                              warmup=1)
+    gen_ms = gen_s * 1e3
+    emit("serve_hymba", arch=cfg.name, dtype="bfloat16", batch=B, prompt=S,
+         n_new=n_new, params=n_params, layers=cfg.n_layers,
+         windowed_layers=cfg.n_layers - windows.count(0),
+         window=cfg.sliding_window, init_s=init_s, launches=launches,
+         generate_ms=gen_ms, prefill_ms=prefill_ms,
+         decode_ms_per_token=(gen_ms - prefill_ms) / n_new,
+         tokens_per_s=B * n_new / gen_s, max_memory_allocated=peak,
+         first_ids=ids[0, :8].tolist())
+
+    n_prof = 4
+    t0 = time.perf_counter()
+    engine.generate(prompts, n_prof)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    prof = device_profile(torch, lambda: engine.generate(prompts, n_prof))
+    emit("serve_hymba_profile", n_new=n_prof, wall_ms=wall_ms,
+         device_busy_share=prof["device_ms"] / wall_ms, **prof)
+    del engine, params, batch, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serve_hymba_parity(torch, cfg_full):
+    """hymba-1.5b at full width and depth 2 (layer 0 global, layer 1
+    windowed), f32, 2 prompts of 1100 tokens (past the window), 8 greedy
+    new tokens: prefill logits within HYMBA_PARITY_LOGIT_ATOL and equal
+    ids, the CPU (plain path) against the card (kernels)."""
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import ServeEngine
+
+    cfg = dataclasses.replace(cfg_full, n_layers=2, dtype="float32")
+    windows = [s.window for s in M.layer_specs(cfg)]
+    B, S, n_new = 2, 1100, 8
+    check(windows == [0, cfg.sliding_window] and S > cfg.sliding_window,
+          f"hymba parity: windows {windows}, prompt {S}")
+    params = cast(init_on_card(torch, cfg, torch.float32, SEED + 17), "cpu",
+                  torch.float32)
+    torch.cuda.empty_cache()
+    prompt = np.random.default_rng(SEED + 18).integers(
+        0, cfg.vocab_size, size=(B, S), dtype=np.int32)
+    seconds, logits, ids = {}, {}, {}
+    cpu = ServeEngine(cfg, params, max_len=S + n_new, device="cpu")
+    gpu = ServeEngine(cfg, cast(params, "cuda", torch.float32),
+                      max_len=S + n_new)
+    for name, eng in (("cpu", cpu), ("cuda", gpu)):
+        t0 = time.perf_counter()
+        toks = torch.as_tensor(prompt, dtype=torch.int64, device=eng.device)
+        batch = {"tokens": toks,
+                 "positions": torch.arange(S, device=eng.device).expand(B, S)}
+        with torch.inference_mode():
+            logits[name] = M.prefill(cfg, eng.params, batch)[0].float().cpu()
+        ids[name] = eng.generate(prompt, n_new)
+        seconds[name] = time.perf_counter() - t0
+    err = (logits["cpu"] - logits["cuda"]).abs().max().item()
+    same = bool(np.array_equal(ids["cpu"], ids["cuda"]))
+    top2 = torch.topk(logits["cpu"], 2, dim=-1).values
+    emit("serve_hymba_parity", arch=cfg.name, dtype="float32",
+         layers=cfg.n_layers, windows=windows, batch=B, prompt=S,
+         n_new=n_new, logits_max_abs_err=err, tol=HYMBA_PARITY_LOGIT_ATOL,
+         logits_max_abs=logits["cpu"].abs().max().item(), ids_equal=same,
+         ids_cpu=ids["cpu"].tolist(), ids_cuda=ids["cuda"].tolist(),
+         first_logit_gap=(top2[:, 0] - top2[:, 1]).min().item(),
+         seconds=seconds)
+    check(err <= HYMBA_PARITY_LOGIT_ATOL, f"hymba prefill logits differ "
+          f"by {err} > {HYMBA_PARITY_LOGIT_ATOL}")
+    check(same, "hymba greedy ids differ between the CPU and the card")
+    del gpu, cpu, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_train_hymba(torch, cfg_full, rm):
+    """hymba-1.5b at full width and depth 24 (layers 0 and 15 global, the
+    rest windowed; bf16, weights drawn on the card) trained by the psum
+    step under train_dmm's DMM controller over ClusterSim(8, 2 nodes, seed
+    7): seq 128 x batch 16, W 8, fused AdamW.  A first run of HYMBA_REPLAY
+    steps, then a second from the same state, controller, timer and data
+    that must give the same losses, cutoffs and parameters bit for bit
+    over those steps and goes on to HYMBA_STEPS, each asserting its
+    launches (flash and mlstm_chunk 24 x 8, masked_grad_agg 1, fused_adam
+    1) and a finite loss.  The two runs share one step function: one
+    (8, N) buffer.  Then the device's busy share of one more step."""
+    from repro_torch import tree
+    from repro_torch.cluster.simulator import ClusterSim
+    from repro_torch.kernels import build
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw, cosine_schedule
+
+    cfg = dataclasses.replace(cfg_full, n_layers=HYMBA_TRAIN_DEPTH)
+    windows = [s.window for s in M.layer_specs(cfg)]
+    W, S, B = 8, 128, 16
+    t0 = time.perf_counter()
+    p0 = cast(init_on_card(torch, cfg, torch.bfloat16, SEED + 19), "cpu",
+              torch.bfloat16)
+    n_params = sum(x.numel() for x in tree.leaves(p0))
+    check(n_params == HYMBA_TRAIN_PARAMS, f"depth-{cfg.n_layers} "
+          f"hymba-1.5b: {n_params} parameters, want {HYMBA_TRAIN_PARAMS}")
+    opt = adamw(cosine_schedule(3e-4, 2, 20), fused=True)
+    step_fn = make_train_step(cfg, opt, mask_agg="psum")
+    setup_s = time.perf_counter() - t0
+
+    def trainer():
+        return _train_setup(
+            torch, cfg, cast(p0, "cuda", torch.bfloat16), n_workers=W,
+            seq=S, batch=B, controller=_dmm_controller(rm),
+            timer=ClusterSim(n_workers=W, n_nodes=2, seed=7), opt=opt,
+            step_fn=step_fn)[0]
+
+    tr = trainer()
+    hist1 = [dict(h) for h in tr.run(HYMBA_REPLAY)]
+    after1 = _cpu_copy(torch, tr.state["params"])
+    del tr
+    gc.collect()
+
+    want = {"flash_attention": cfg.n_layers * W,
+            "mlstm_chunk": cfg.n_layers * W, "masked_grad_agg": 1,
+            "fused_adam": 1}
+    tr = trainer()
+    totals, walls, steps = {}, [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(HYMBA_STEPS):
+        build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        rec = tr.run(1)[-1]        # drains the loss: ends in a device sync
+        wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        check(launches == want, f"train_hymba step {rec['step']}: launches "
+              f"{launches}, want {want}")
+        check(bool(np.isfinite(rec["loss"])),
+              f"train_hymba step {rec['step']}: loss {rec['loss']}")
+        if i + 1 == HYMBA_REPLAY:
+            replay = {
+                "losses_equal": [h["loss"] for h in hist1]
+                == [h["loss"] for h in tr.history],
+                "cutoffs_equal": [h["c"] for h in hist1]
+                == [h["c"] for h in tr.history],
+                "params_equal": _bit_equal(
+                    torch, after1, _cpu_copy(torch, tr.state["params"]))}
+            check(all(replay.values()), f"train_hymba: the replay of "
+                  f"{HYMBA_REPLAY} steps differs: {replay}")
+            del after1
+        walls.append(wall * 1e3)
+        steps.append({"step": rec["step"], "c": rec["c"], "n": rec["n"],
+                      "loss": rec["loss"], "clock": rec["clock"],
+                      "wall_ms": wall * 1e3})
+        emit("train_hymba", arch=cfg.name, dtype="bfloat16", **steps[-1],
+             tokens_per_s=B * S / wall, launches=launches,
+             max_memory_allocated=torch.cuda.max_memory_allocated())
+    peak = torch.cuda.max_memory_allocated()
+    wall = []
+
+    def one_step():
+        t0 = time.perf_counter()
+        tr.run(1)
+        wall.append((time.perf_counter() - t0) * 1e3)
+
+    prof = device_profile(torch, one_step)
+    emit("train_hymba_profile", wall_ms=wall[0],
+         device_busy_share=prof["device_ms"] / wall[0], **prof)
+    check(len(step_fn.buffers) == 1, f"train_hymba: {len(step_fn.buffers)} "
+          f"worker buffers, want the one (8, N)")
+    emit("train_hymba_summary", params=n_params, layers=cfg.n_layers,
+         global_layers=[li for li, w in enumerate(windows) if w == 0],
+         workers=W, seq=S, batch=B, setup_s=setup_s,
+         median_wall_ms=float(np.median(walls[1:])), launches=totals,
+         max_memory_allocated=peak, replay=replay,
+         replay_losses=[h["loss"] for h in hist1])
+    del tr, step_fn, opt, p0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
+def phase_train_hymba_parity(torch, cfg_full):
+    """hymba-1.5b at full width and depth 2 (a global and a windowed
+    layer), f32, W 2 (one worker dropped), seq 32 x batch 4, fused AdamW,
+    2 steps: train_parity's comparisons at HYMBA_PARITY_TOL, CPU against
+    the card."""
+    cfg = dataclasses.replace(cfg_full, n_layers=2, dtype="float32")
+    p_cpu = cast(init_on_card(torch, cfg, torch.float32, SEED + 20), "cpu",
+                 torch.float32)
+    torch.cuda.empty_cache()
+    rec, _ = _train_parity(torch, cfg, p_cpu, W=2, S=32, B=4, n_steps=2,
+                           cutoff=1)
+    rec["tol"] = HYMBA_PARITY_TOL
+    emit("train_hymba_parity", arch=cfg.name, host_rss=_host_rss(), **rec)
+    _check_train_parity(rec, "train_hymba_parity", HYMBA_PARITY_TOL)
 
 
 def timed(seconds, name, fn, *args):
@@ -4340,8 +4762,15 @@ def main() -> int:
     timed(sec, "serve_moe_parity", phase_serve_moe_parity, torch, mcfg)
     moe_train_launches, agg_moe, adam_moe = timed(
         sec, "train_moe", phase_train_moe, torch, mcfg, rm)
-    del rm
     timed(sec, "train_moe_parity", phase_train_moe_parity, torch, mcfg)
+    hcfg = get_config("hymba-1.5b")
+    hymba_serve_launches = timed(sec, "serve_hymba", phase_serve_hymba,
+                                 torch, hcfg)
+    timed(sec, "serve_hymba_parity", phase_serve_hymba_parity, torch, hcfg)
+    hymba_train_launches = timed(sec, "train_hymba", phase_train_hymba,
+                                 torch, hcfg, rm)
+    del rm
+    timed(sec, "train_hymba_parity", phase_train_hymba_parity, torch, hcfg)
     emit("seconds", **sec, total=time.perf_counter() - t_start)
 
     def launches(name):
@@ -4356,7 +4785,9 @@ def main() -> int:
                    "supervised": supervised_launches.get(name, 0),
                    "train_xlstm": xtrain_launches.get(name, 0),
                    "serve_moe": moe_serve_launches.get(name, 0),
-                   "train_moe": moe_train_launches.get(name, 0)}
+                   "train_moe": moe_train_launches.get(name, 0),
+                   "serve_hymba": hymba_serve_launches.get(name, 0),
+                   "train_hymba": hymba_train_launches.get(name, 0)}
         return sum(by_path.values()), by_path
 
     def worst(cases, head):
@@ -4372,6 +4803,7 @@ def main() -> int:
 
     flash_err, flash_extra = worst(flash, HEADLINE_CASE)
     mlstm_err, mlstm_extra = worst(mlstm, MLSTM_HEADLINE)
+    hymba_mlstm = mlstm[MLSTM_HYMBA_HEADLINE]
     head = flash[HEADLINE_CASE]
     agg_head, adam_head = agg[AGG_HEADLINE], adam[ADAM_HEADLINE]
     rows = []
@@ -4399,7 +4831,11 @@ def main() -> int:
               "bwd_case": MLSTM_GRAD_HEADLINE,
               **{k: mlstm_grad[MLSTM_GRAD_HEADLINE][k]
                  for k in ("fwd_ms", "bwd_ms", "bwd_bound_ms",
-                           "bwd_bound_by")}})):
+                           "bwd_bound_by")},
+              "hymba_case": MLSTM_HYMBA_HEADLINE,
+              **{f"hymba_{k}": hymba_mlstm[k]
+                 for k in ("path", "ms", "plain_ms", "bound_ms", "bound_by",
+                           "max_abs_err", "y_max_abs")}})):
         total, by_path = launches(name)
         rows.append({
             "name": name, "route": "cuda",

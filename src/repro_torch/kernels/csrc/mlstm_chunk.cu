@@ -14,10 +14,21 @@
 // drops: prefill hands it to decode as the cache.  Any S (the last chunk
 // may be short) and any B*H; hd 16, 32, or a multiple of 64 up to 512.
 //
-// Inputs: q/k/v (B,S,H,hd) in f32 or bf16, any strides with hd contiguous;
-// g/i (B,S,H) f32 log forget/input gates, any strides.  Outputs, contiguous
-// f32: y (B,S,H,hd), C (B,H,hd,hd), n (B,H,hd), m (B,H), loga (B,H).
-// Accumulation is f32 throughout; m starts at -1e30, as in JAX.
+// The CUDA-core path also computes the other form of the JAX package's
+// `ssm.linear_recurrence` (src/repro/models/ssm.py:141), the one Hymba's
+// Mamba heads call (src/repro/models/blocks.py:178): `normalize` off, any
+// `scale` (Hymba's is 1), and q/k of width dq apart from v's dv.  Off, the
+// output is the numerator at the running stabilizer, y_t = (sum_s
+// exp(lg_t - lg_s + i_s - m_t) (q_t k_s) v_s + exp(lg_t + m_enter - m_t) q_t
+// C_enter) * scale, where m_t = max(lg_t + m_enter, max_{s<=t} lg_t - lg_s +
+// i_s) is the state's own running max, the same whatever the chunking.
+//
+// Inputs: q/k (B,S,H,dq) and v (B,S,H,dv) in f32 or bf16 (dq = dv = hd on
+// the wgmma path), any strides with the last dim contiguous (a stride
+// of 0 over H reads one q/k for every head: Hymba's broadcast); g/i (B,S,H)
+// f32 log forget/input gates, any strides.  Outputs, contiguous f32: y
+// (B,S,H,dv), C (B,H,dq,dv), n (B,H,dq), m (B,H), loga (B,H).  Accumulation
+// is f32 throughout; m starts at -1e30, as in JAX.
 //
 // What bounds it on the H100.  At xlstm-350m's serving shape (B=4, S=128,
 // H=4, hd=512, bf16) the work, counted in the Pallas kernel's chunks of
@@ -75,12 +86,18 @@
 //      mantissa bits, so the path holds atol = rtol = 5e-4 against the
 //      sequential oracle; one bf16 pass would not.
 // 2. CUDA cores (`mlstm_fwd`): f32 inputs (the parity runs), hd 16 or 32,
-//    and inputs off 16-byte alignment.  A block owns one (batch, head) and
-//    a tile of VT = min(64, hd) value columns, keeps C[:, tile] in shared
-//    memory (128 KB at hd 512) and walks chunks of CH = 32 positions in
-//    order; every block of a head recomputes what reduces over the key
-//    dimension.  Products are f32 FMAs from register tiles fed by 8- and
-//    16-byte shared loads.
+//    inputs off 16-byte alignment, and the unnormalized or unequal-width
+//    form.  A block owns one (batch, head) and a tile of VT = min(64, dv)
+//    value columns, keeps C[:, tile] in shared memory (128 KB at dq 512) and
+//    walks chunks of CH = 32 positions in order, the key dimension in tiles
+//    of DT = min(64, dq); every block of a head recomputes what reduces over
+//    the key dimension.  Products are f32 FMAs from register tiles fed by 8-
+//    and 16-byte shared loads.
+//    At hymba-1.5b's serving shape (B 4, S 1280, H 25, dq 16, dv 128, bf16,
+//    q/k broadcast over the heads) the bytes bound it: ~100 MB (v in, y out
+//    in f32: 98 MB of it) is ~30 us at 3.35 TB/s, against ~3.4 GFLOP, 51 us
+//    even on the CUDA cores' f32 FMAs.  Its 200 blocks walk 40 chunks each in
+//    order, so it is a chain of latencies far from that bound (PERF.md).
 //
 // Plain C interface, bound with ctypes (repro_torch/kernels/build.py).  The
 // launches go on the caller's stream; the function returns the CUDA error
@@ -119,13 +136,14 @@ struct Params {
   float* n;
   float* m;
   float* loga;
-  int B, S, H, hd, vt;
+  int B, S, H, dq, dv, dt, vt;   // dt: key tile, vt: value tile
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
   long long g_sb, g_ss, g_sh;
   long long i_sb, i_ss, i_sh;
   float scale;
+  int normalize;   // 0: the numerator at the stabilizer m_out
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -135,10 +153,9 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
 
 // Floats of dynamic shared memory a block needs; every array starts 16 B
 // aligned (each size is a multiple of 4 floats).
-__host__ __device__ inline int smem_floats(int hd, int vt) {
-  const int dt = vt;
-  return hd * vt              // C[:, tile]
-         + hd                 // n
+__host__ __device__ inline int smem_floats(int dq, int dt, int vt) {
+  return dq * vt              // C[:, tile]
+         + dq                 // n
          + 2 * dt * QS        // q and k tiles, key-major
          + CH * (dt + 4)      // k tile, position-major
          + 2 * CH * vt        // v tile, and v tile times the carry weight
@@ -150,11 +167,11 @@ __host__ __device__ inline int smem_floats(int hd, int vt) {
 template <typename T>
 __global__ void __launch_bounds__(NT, 1) mlstm_fwd(Params p) {
   extern __shared__ __align__(16) float smem[];
-  const int hd = p.hd;
+  const int dq = p.dq;
   const int VT = p.vt;
-  const int DT = p.vt;
+  const int DT = p.dt;
   const int KSS = DT + 4;   // row of the position-major k tile
-  const int nvt = hd / VT;
+  const int nvt = p.dv / VT;
   int blk = blockIdx.x;
   const int vti = blk % nvt;
   blk /= nvt;
@@ -163,9 +180,9 @@ __global__ void __launch_bounds__(NT, 1) mlstm_fwd(Params p) {
   const int v0 = vti * VT;
   const int tid = threadIdx.x;
 
-  float* Cs = smem;                    // [hd][VT]
-  float* ns = Cs + hd * VT;            // [hd]
-  float* QT = ns + hd;                 // [DT][QS], scaled q
+  float* Cs = smem;                    // [dq][VT]
+  float* ns = Cs + dq * VT;            // [dq]
+  float* QT = ns + dq;                 // [DT][QS], scaled q
   float* KT = QT + DT * QS;            // [DT][QS]
   float* KS = KT + DT * QS;            // [CH][KSS]
   float* Vs = KS + CH * KSS;           // [CH][VT]
@@ -189,8 +206,8 @@ __global__ void __launch_bounds__(NT, 1) mlstm_fwd(Params p) {
   const float* __restrict__ gp = p.g + b * p.g_sb + h * p.g_sh;
   const float* __restrict__ ip = p.i + b * p.i_sb + h * p.i_sh;
 
-  for (int idx = tid; idx < hd * VT; idx += NT) Cs[idx] = 0.f;
-  for (int idx = tid; idx < hd; idx += NT) ns[idx] = 0.f;
+  for (int idx = tid; idx < dq * VT; idx += NT) Cs[idx] = 0.f;
+  for (int idx = tid; idx < dq; idx += NT) ns[idx] = 0.f;
   if (tid == 0) {
     scal[0] = NEG;
     scal[1] = 0.f;
@@ -286,7 +303,7 @@ __global__ void __launch_bounds__(NT, 1) mlstm_fwd(Params p) {
     };
     fetch(0);
 
-    for (int d0 = 0; d0 < hd; d0 += DT) {
+    for (int d0 = 0; d0 < dq; d0 += DT) {
       __syncthreads();   // the previous tile's readers are done
 #pragma unroll
       for (int r = 0; r < LD_PER; ++r) {
@@ -299,7 +316,7 @@ __global__ void __launch_bounds__(NT, 1) mlstm_fwd(Params p) {
         }
       }
       __syncthreads();
-      if (d0 + DT < hd) fetch(d0 + DT);   // in flight during the products
+      if (d0 + DT < dq) fetch(d0 + DT);   // in flight during the products
       // q k^T
       for (int d = 0; d < DT; ++d) {
         const float2 a = *reinterpret_cast<const float2*>(&QT[d * QS + kt0]);
@@ -371,7 +388,7 @@ __global__ void __launch_bounds__(NT, 1) mlstm_fwd(Params p) {
         Wm[(kt0 + a) * (CH + 4) + ks0 + c] *= aqk[a][c];
     if (tid < CH) qn[tid] = aqn;
     __syncthreads();
-    if (tid < L) {
+    if (tid < L && p.normalize) {
       const int t = tid;
       float acc = 0.f;
       for (int s = 0; s <= t; ++s) acc += Wm[t * (CH + 4) + s];
@@ -394,10 +411,15 @@ __global__ void __launch_bounds__(NT, 1) mlstm_fwd(Params p) {
           }
           n0 += sce[t] * aqc[a][0];
           n1 += sce[t] * aqc[a][1];
-          float* yp =
-              &p.y[(((long long)b * p.S + c0 + t) * p.H + h) * hd + v0 + cj0];
-          yp[0] = n0 / den[t];
-          yp[1] = n1 / den[t];
+          float* yp = &p.y[(((long long)b * p.S + c0 + t) * p.H + h) * p.dv +
+                           v0 + cj0];
+          if (p.normalize) {
+            yp[0] = n0 / den[t];
+            yp[1] = n1 / den[t];
+          } else {
+            yp[0] = n0;
+            yp[1] = n1;
+          }
         }
       }
     }
@@ -410,14 +432,14 @@ __global__ void __launch_bounds__(NT, 1) mlstm_fwd(Params p) {
   }
 
   // ---- final state ----
-  float* C = p.C + ((long long)b * p.H + h) * hd * hd;
-  for (int idx = tid; idx < hd * VT; idx += NT) {
+  float* C = p.C + ((long long)b * p.H + h) * dq * p.dv;
+  for (int idx = tid; idx < dq * VT; idx += NT) {
     const int d = idx / VT, j = idx % VT;
-    C[(long long)d * hd + v0 + j] = Cs[idx];
+    C[(long long)d * p.dv + v0 + j] = Cs[idx];
   }
   if (vti == 0) {
-    float* n = p.n + ((long long)b * p.H + h) * hd;
-    for (int d = tid; d < hd; d += NT) n[d] = ns[d];
+    float* n = p.n + ((long long)b * p.H + h) * dq;
+    for (int d = tid; d < dq; d += NT) n[d] = ns[d];
     if (tid == 0) {
       p.m[b * p.H + h] = scal[0];
       p.loga[b * p.H + h] = scal[1];
@@ -433,18 +455,19 @@ int launch(const Params& p, cudaStream_t stream) {
   if (!allowed) {
     cudaError_t err = cudaFuncSetAttribute(
         mlstm_fwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_floats(MAX_HD, TMAX) * (int)sizeof(float));
+        smem_floats(MAX_HD, TMAX, TMAX) * (int)sizeof(float));
     if (err != cudaSuccess) return (int)err;
     allowed = true;
   }
-  const int bytes = smem_floats(p.hd, p.vt) * (int)sizeof(float);
-  const long long blocks = (long long)p.B * p.H * (p.hd / p.vt);
+  const int bytes = smem_floats(p.dq, p.dt, p.vt) * (int)sizeof(float);
+  const long long blocks = (long long)p.B * p.H * (p.dv / p.vt);
   mlstm_fwd<T><<<(unsigned)blocks, NT, bytes, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-// Widest value tile the kernel uses for head dim hd, or 0 if hd is refused.
-// The tile divides the block's 256 threads: 16, 32 or 64 columns.
+// Widest tile the kernel uses for a width hd of q/k (the key tile) or of v
+// (the value tile), or 0 if hd is refused.  The tile divides the block's 256
+// threads: 16, 32 or 64 columns.
 int value_tile(int hd) {
   if (hd == 16 || hd == 32) return hd;
   if (hd <= 0 || hd > MAX_HD || hd % TMAX) return 0;
@@ -1182,26 +1205,30 @@ bool aligned16(const void* ptr, long long s0, long long s1, long long s2) {
 
 extern "C" {
 
-// path: 0 = CUDA cores (f32 or bf16), 1 = wgmma (bf16, 16-byte aligned, hd
-// a multiple of 64).  dtype: 0 = float32, 1 = bfloat16 (q, k, v alike).
-// `scratch` holds the wgmma path's entering states when S > 128 (f32 words:
-// (ceil(S/128) - 1) * B * H * (hd*hd + hd + 1), see scratch_floats in
-// mlstm_chunk.py).  Returns 0 on success, a CUDA error code, -1 for a head
-// dim, -2 for a dtype, -3 for shapes, alignment or a missing scratch, -4
-// for a path.
+// path: 0 = CUDA cores (f32 or bf16), 1 = wgmma (bf16, 16-byte aligned, dq
+// = dv a multiple of 64, normalized).  dtype: 0 = float32, 1 = bfloat16 (q,
+// k, v alike).  dq: width of q and k, dv: of v.  normalize: 1 divides by the
+// normalizer, 0 returns the numerator at the stabilizer.  `scratch` holds
+// the wgmma path's entering states when S > 128 (f32 words: (ceil(S/128) -
+// 1) * B * H * (hd*hd + hd + 1), see scratch_floats in mlstm_chunk.py).
+// Returns 0 on success, a CUDA error code, -1 for a head dim, -2 for a
+// dtype, -3 for shapes, alignment or a missing scratch, -4 for a path, -5
+// for a form (unnormalized or dq != dv) the wgmma path does not take.
 int mlstm_chunk_fwd(const void* q, const void* k, const void* v,
                     const float* g, const float* i, float* y, float* C,
                     float* n, float* m, float* loga, int dtype, int B, int S,
-                    int H, int hd, long long q_sb, long long q_ss,
+                    int H, int dq, int dv, long long q_sb, long long q_ss,
                     long long q_sh, long long k_sb, long long k_ss,
                     long long k_sh, long long v_sb, long long v_ss,
                     long long v_sh, long long g_sb, long long g_ss,
                     long long g_sh, long long i_sb, long long i_ss,
-                    long long i_sh, float scale, int path, void* scratch,
-                    void* stream) {
+                    long long i_sh, float scale, int normalize, int path,
+                    void* scratch, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B < 1 || S < 1 || H < 1) return -3;
   if (path == 1) {
+    if (dq != dv || !normalize) return -5;
+    const int hd = dq;
     if (hd < TC_DT || hd > MAX_HD || hd % TC_DT) return -1;
     if (dtype != 1) return -2;
     if (!aligned16(q, q_sb, q_ss, q_sh) || !aligned16(k, k_sb, k_ss, k_sh) ||
@@ -1226,12 +1253,12 @@ int mlstm_chunk_fwd(const void* q, const void* k, const void* v,
     return hd % 128 == 0 ? launch_tc<128>(tp, st) : launch_tc<64>(tp, st);
   }
   if (path != 0) return -4;
-  const int vt = value_tile(hd);
-  if (vt == 0) return -1;
-  if ((long long)B * H * (hd / vt) > 0x7fffffffLL) return -3;
-  Params p{q, k, v, g, i, y, C, n, m, loga, B, S, H, hd, vt,
+  const int dt = value_tile(dq), vt = value_tile(dv);
+  if (dt == 0 || vt == 0) return -1;
+  if ((long long)B * H * (dv / vt) > 0x7fffffffLL) return -3;
+  Params p{q, k, v, g, i, y, C, n, m, loga, B, S, H, dq, dv, dt, vt,
            q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-           g_sb, g_ss, g_sh, i_sb, i_ss, i_sh, scale};
+           g_sb, g_ss, g_sh, i_sb, i_ss, i_sh, scale, normalize != 0};
   if (dtype == 0) return launch<float>(p, st);
   if (dtype == 1) return launch<__nv_bfloat16>(p, st);
   return -2;

@@ -6,8 +6,12 @@ its chunk machinery).  The recurrence over chunk states
     S_t = exp(g_t) * S_{t-1} + exp(i_t) * k_t v_t^T
 
 runs in chunkwise-parallel form: quadratic (attention-like) math inside a
-chunk and a sequential scan over chunk states.  Outputs are normalized and
-scaled by 1/sqrt(dq), as the xLSTM block (the only caller) asks.
+chunk and a sequential scan over chunk states.  By default the outputs are
+normalized and q k is scaled by 1/sqrt(dq), as the xLSTM block asks; the
+Hymba Mamba sublayer asks for ``normalize=False, scale=1.0``, with q/k
+``dq`` wide and v ``dv`` wide.  Unnormalized, the output is the numerator
+relative to the running stabilizer m_t (the state's own running max, the
+same whatever the chunking), exactly as JAX returns it.
 
 One departure from JAX's f32 arithmetic: the cumulative log decay ``lg``
 within a chunk is summed in f64.  The chunk form takes differences
@@ -93,10 +97,11 @@ def _chunk_states(k, v, g, i) -> ScanState:
     return ScanState(loga=tot.float(), m=m_loc, C=C, n=n)
 
 
-def _chunk_outputs(q, k, v, g, i, ent: ScanState):
-    """Normalized outputs for every position given the entering state of
-    each chunk."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
+def _chunk_outputs(q, k, v, g, i, ent: ScanState, *, normalize: bool = True,
+                   scale: Optional[float] = None):
+    """Outputs for every position given the entering state of each chunk:
+    normalized, or the numerator at the stabilizer m_out."""
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
     lg = torch.cumsum(g.double(), dim=2)                 # (B,nc,c,h), f64
     # intra-chunk log decay matrix D[t,s] = lg_t - lg_s + i_s (s <= t)
     D = ((lg[:, :, :, None, :] - lg[:, :, None, :, :]).float()
@@ -113,12 +118,13 @@ def _chunk_outputs(q, k, v, g, i, ent: ScanState):
     dot = torch.einsum("bnthq,bnshq->bntsh", qf, k.float()) * scale
     WS = W * dot
     num = torch.einsum("bntsh,bnshv->bnthv", WS, v.float())
-    den = torch.sum(WS, dim=3)                           # (B,nc,t,h)
     sc_e = torch.exp((lg_e - m_out).float())             # (B,nc,t,h)
     qC = torch.einsum("bnthq,bnhqv->bnthv", qf, ent.C) * scale
-    qn = torch.einsum("bnthq,bnhq->bnth", qf, ent.n) * scale
     num = num + sc_e[..., None] * qC
-    den = den + sc_e * qn
+    if not normalize:
+        return num
+    qn = torch.einsum("bnthq,bnhq->bnth", qf, ent.n) * scale
+    den = torch.sum(WS, dim=3) + sc_e * qn               # (B,nc,t,h)
     den = torch.maximum(torch.abs(den), torch.exp(-m_out))
     return num / den[..., None]
 
@@ -135,11 +141,14 @@ def _local_scan(elems: ScanState):
 
 
 def linear_recurrence(q, k, v, g, i, *, chunk: int = 128,
-                      init_state: Optional[ScanState] = None):
-    """Normalized chunked linear recurrence over (B, S, h, d*) inputs.
+                      init_state: Optional[ScanState] = None,
+                      normalize: bool = True, scale: Optional[float] = None):
+    """Chunked linear recurrence over q/k (B, S, h, dq) and v (B, S, h, dv).
 
     Returns (y (B,S,h,dv) f32, final_state).  The chunk is ``chunk`` when it
-    divides S and S is longer, else the whole of S, as in JAX.
+    divides S and S is longer, else the whole of S, as in JAX.  ``scale``
+    (None: 1/sqrt(dq)) multiplies q k; ``normalize=False`` returns JAX's
+    unnormalized numerator.
     """
     B, S, h, dq = q.shape
     dv = v.shape[-1]
@@ -157,5 +166,6 @@ def linear_recurrence(q, k, v, g, i, *, chunk: int = 128,
     if init_state is not None:
         entering = combine(_map(lambda t: t[:, None], init_state), entering)
         final = combine(init_state, final)
-    y = _chunk_outputs(qc, kc, vc, gc, ic, entering)
+    y = _chunk_outputs(qc, kc, vc, gc, ic, entering, normalize=normalize,
+                       scale=scale)
     return y.reshape(B, S, h, dv), final

@@ -23,16 +23,18 @@ def attention(q, k, v, *, causal=True, window=0):
     return flash_attention(q, k, v, causal=causal, window=window)
 
 
-def mlstm(q, k, v, g, i):
-    """Normalized mLSTM over q/k/v (B, S, H, hd) and f32 log gates g/i
-    (B, S, H) -> (y (B, S, H, hd) f32, final ``ScanState``).  JAX's
-    ``ops.mlstm`` returns y alone; the port's prefill also needs the state
-    for its decode cache.  With grad mode on and an input that requires a
-    gradient (training), a CUDA tensor goes through the autograd Function
-    ``MLSTMChunk`` (the kernel forward, the plain recurrence's backward)
-    and a CPU tensor through ``linear_recurrence``, which autograd
-    differentiates directly."""
-    return mlstm_chunk(q, k, v, g, i)
+def mlstm(q, k, v, g, i, *, normalize=True, scale=None):
+    """The mLSTM recurrence over q/k (B, S, H, dq), v (B, S, H, dv) and f32
+    log gates g/i (B, S, H) -> (y (B, S, H, dv) f32, final ``ScanState``):
+    normalized with scale 1/sqrt(dq) by default (the xLSTM), or as the
+    caller asks (Hymba's Mamba heads: ``normalize=False, scale=1.0``).
+    JAX's ``ops.mlstm`` returns y alone; the port's prefill also needs the
+    state for its decode cache.  With grad mode on and an input that
+    requires a gradient (training), a CUDA tensor goes through the autograd
+    Function ``MLSTMChunk`` (the kernel forward, the plain recurrence's
+    backward) and a CPU tensor through ``linear_recurrence``, which
+    autograd differentiates directly."""
+    return mlstm_chunk(q, k, v, g, i, normalize=normalize, scale=scale)
 
 
 # ---------------------------------------------------------------------------

@@ -134,8 +134,8 @@ def make_train_step(cfg, optimizer: optim.Optimizer, *,
     masked mean weighted by f then combines the rows: the JAX step's
     concatenate-then-combine result without the concatenation copy.  With
     a 0/1 vector every weight is exactly 1.0 or 0.0, and the weights and
-    psum paths agree where the auxiliary loss is zero (dense and xLSTM
-    archs, or aux_coef 0).  For MoE archs they differ on the aux, as the
+    psum paths agree where the auxiliary loss is zero (dense, xLSTM and
+    Hymba archs, or aux_coef 0).  For MoE archs they differ on the aux, as the
     JAX step's do: "psum" takes each worker's own aux (a dropped worker
     contributes nothing, aux included) and routes each worker's rows at
     their own capacity, "weights" takes the whole batch's.

@@ -1,7 +1,8 @@
 """Layer blocks: dense ``attn_mlp``, MoE ``attn_moe`` and ``attn_dense``,
-xLSTM ``mlstm`` and ``slstm``.
+xLSTM ``mlstm`` and ``slstm``, Hymba ``hybrid``.
 
-Twin of ``repro.models.blocks`` for the dense, MoE and xLSTM families.
+Twin of ``repro.models.blocks`` for the dense, MoE, xLSTM and hybrid
+families.
 Contract: ``block_forward(cfg, spec, params, x, ctx, cache) -> (x,
 cache', aux)``, the reference's ``apply_block``, where ``aux`` is the
 layer's f32 load-balance loss for ``attn_moe`` and None for the kinds
@@ -14,7 +15,8 @@ cache')`` alone.
 
 The caches follow JAX's layout: ``{"attn": {"k", "v"}}`` for attention
 (written in place at ``ctx.pos``), ``{"state": ScanState, "conv": tail}``
-for the mLSTM and ``{"state": (c, n, h, m)}`` for the sLSTM.
+for the mLSTM, ``{"state": (c, n, h, m)}`` for the sLSTM and ``{"attn":
+{"k", "v"}, "mamba": {"state": ScanState, "conv": tail}}`` for the hybrid.
 """
 from __future__ import annotations
 
@@ -33,8 +35,8 @@ from repro_torch.models import ssm as S
 
 @dataclass(frozen=True)
 class LayerSpec:
-    kind: str        # attn_mlp | attn_moe | attn_dense | mlstm | slstm;
-    #                  hybrid and dec raise
+    kind: str        # attn_mlp | attn_moe | attn_dense | mlstm | slstm |
+    #                  hybrid; enc and dec raise
     window: int = 0  # 0 = full attention
 
 
@@ -114,6 +116,74 @@ def _mlstm_block(cfg, p, x, ctx, cache):
     return x + y @ p["w_out"], new_cache
 
 
+def mamba_apply(cfg, p, x, ctx, cache):
+    """Hymba's Mamba sublayer (Mamba-2/SSD form, one scalar decay a head),
+    twin of ``repro.models.blocks.mamba_apply``: the causal conv (decode
+    from the cached 3-position tail), B/C of ``ssm_state`` wide shared by
+    every head, softplus dt, the gates g = -dt exp(a_log) (f32) and i =
+    log(dt + 1e-9) (the activation dtype, as JAX), the unnormalized
+    recurrence at scale 1, the ``d_skip`` term in f32 and the silu(z) gate.
+    Train and prefill run the recurrence through ``ops.mlstm`` (the
+    ``mlstm_chunk`` kernel on the card, with q/k as a head broadcast that
+    is never materialized); decode takes one ``recurrence_step``.  Returns
+    (y, cache')."""
+    B, Sx, d = x.shape
+    di = cfg.ssm_expand * d
+    h = cfg.n_heads
+    hd = di // h
+    n = cfg.ssm_state
+    cw = cfg.ssm_conv_width
+    xs, z = torch.chunk(x @ p["w_in"], 2, dim=-1)
+    if ctx.mode == "decode":
+        conv_in = torch.cat([cache["conv"], xs], dim=1)
+        xc = sum(conv_in[:, j:j + 1] * p["conv_w"][j]
+                 for j in range(cw)) + p["conv_b"]
+        new_conv = conv_in[:, 1:]
+    else:
+        xc = S.causal_conv1d(xs, p["conv_w"], p["conv_b"])
+    xc = F.silu(xc)
+    b_, c_ = torch.chunk(xc @ p["w_bc"], 2, dim=-1)       # (B,S,N) each
+    dt = F.softplus(xc @ p["w_dt"] + p["dt_bias"])        # (B,S,h)
+    g = -dt * torch.exp(p["a_log"].float())               # f32
+    i = torch.log(dt + 1e-9)
+    v = xs.reshape(B, Sx, h, hd)
+    k = b_[:, :, None, :].expand(B, Sx, h, n)
+    q = c_[:, :, None, :].expand(B, Sx, h, n)
+    if ctx.mode == "decode":
+        y, st = S.recurrence_step(cache["state"], q[:, 0], k[:, 0], v[:, 0],
+                                  g[:, 0], i[:, 0], normalize=False,
+                                  scale=1.0)
+        y = y[:, None]
+        cache = {"state": st, "conv": new_conv}
+    else:
+        y, st = ops.mlstm(q, k, v, g, i.float(), normalize=False, scale=1.0)
+        cache = None
+        if ctx.mode == "prefill":
+            cache = {"state": st, "conv": xs[:, -(cw - 1):].contiguous()}
+    y = y + p["d_skip"].float()[None, None, :, None] * v.float()
+    y = y.reshape(B, Sx, di).to(x.dtype) * F.silu(z)
+    return y @ p["w_out_m"], cache
+
+
+def _hybrid_block(cfg, spec, p, x, ctx, cache):
+    """Attention and Mamba heads in parallel on the same norm, each branch
+    RMS-normed, averaged, then the MLP."""
+    h = L.apply_norm(cfg, p["norm1"], x)
+    ya, attn_cache = _attn_sublayer(cfg, p["attn"], h, ctx,
+                                    cache["attn"] if cache else None,
+                                    window=spec.window)
+    ym, mamba_cache = mamba_apply(cfg, p["mamba"], h, ctx,
+                                  cache["mamba"] if cache else None)
+    ya = L.apply_norm(cfg, p["branch_norm_attn"], ya)
+    ym = L.apply_norm(cfg, p["branch_norm_ssm"], ym)
+    x = x + 0.5 * (ya + ym)
+    h = L.apply_norm(cfg, p["norm2"], x)
+    x = x + L.apply_mlp(cfg, p["mlp"], h)
+    if attn_cache is None and mamba_cache is None:
+        return x, None
+    return x, {"attn": attn_cache, "mamba": mamba_cache}
+
+
 def _slstm_block(cfg, p, x, ctx, cache):
     h0 = L.apply_norm(cfg, p["norm1"], x)
     state = cache["state"] if cache else None
@@ -156,12 +226,14 @@ def block_forward(cfg, spec: LayerSpec, p, x, ctx: Ctx, cache):
         x, cache = _slstm_block(cfg, p, x, ctx, cache)
     elif spec.kind in ("attn_mlp", "attn_moe", "attn_dense"):
         x, cache, aux = _attn_ffn_block(cfg, spec, p, x, ctx, cache)
+    elif spec.kind == "hybrid":
+        x, cache = _hybrid_block(cfg, spec, p, x, ctx, cache)
     else:
         raise NotImplementedError(
             f"block kind {spec.kind!r} is not ported yet: the port covers "
-            f"the dense attn_mlp, the MoE attn_moe/attn_dense and the "
-            f"xLSTM mlstm/slstm blocks; hybrid and encoder-decoder blocks "
-            f"come with their own later slices")
+            f"the dense attn_mlp, the MoE attn_moe/attn_dense, the xLSTM "
+            f"mlstm/slstm and the Hymba hybrid blocks; encoder-decoder "
+            f"blocks come with a later slice")
     return x, cache, aux
 
 

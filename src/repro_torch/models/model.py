@@ -1,9 +1,9 @@
 """Model assembly: layer specs, init, train/prefill/decode entry points.
 
-Twin of ``repro.models.model`` for the dense LM, MoE and xLSTM families
-on one device.  Where JAX stacks the layers of a segment and runs them under
-``jax.lax.scan``, the port keeps one parameter dict per layer
-(``params["layers"]``) and loops over them in Python.
+Twin of ``repro.models.model`` for the dense LM, MoE, xLSTM and hybrid
+(Hymba) families on one device.  Where JAX stacks the layers of a segment
+and runs them under ``jax.lax.scan``, the port keeps one parameter dict per
+layer (``params["layers"]``) and loops over them in Python.
 
 Parameters are plain dicts of tensors in the JAX layout: a dense weight is
 ``(d_in, d_out)`` and applied as ``x @ w``.
@@ -163,6 +163,20 @@ def init_model(cfg, generator: torch.Generator, device=None, dtype=None):
                 "head_norm": {"scale": const((di,), 1.0)},
                 "w_out": dense(di, d)}
 
+    def mamba():   # repro.models.blocks.mamba_init
+        di, nh, n = cfg.ssm_expand * d, cfg.n_heads, cfg.ssm_state
+        return {"w_in": dense(d, 2 * di),
+                "conv_w": normal((cfg.ssm_conv_width, di), 0.2),
+                "conv_b": const((di,), 0.0),
+                "w_bc": dense(di, 2 * n), "w_dt": dense(di, nh),
+                "dt_bias": const((nh,), -2.0), "a_log": const((nh,), 0.0),
+                "d_skip": const((nh,), 1.0), "w_out_m": dense(di, d)}
+
+    def hybrid():
+        return dict(attention(), mlp=mlp(cfg.d_ff), mamba=mamba(),
+                    branch_norm_attn={"scale": const((d,), 1.0)},
+                    branch_norm_ssm={"scale": const((d,), 1.0)})
+
     def slstm():
         nh = cfg.n_heads
         hd = d // nh
@@ -174,14 +188,14 @@ def init_model(cfg, generator: torch.Generator, device=None, dtype=None):
 
     d, qd, kvd = cfg.d_model, cfg.qkv_dim, cfg.kv_dim
     make = {"attn_mlp": attn_mlp, "attn_dense": attn_dense,
-            "attn_moe": attn_moe, "mlstm": mlstm, "slstm": slstm}
+            "attn_moe": attn_moe, "mlstm": mlstm, "slstm": slstm,
+            "hybrid": hybrid}
     layers = []
     for spec in layer_specs(cfg):
         if spec.kind not in make:
             raise NotImplementedError(
-                f"block kind {spec.kind!r} is not ported yet: hybrid "
-                f"(Hymba) and encoder-decoder (whisper) blocks come with "
-                f"their own later slices")
+                f"block kind {spec.kind!r} is not ported yet: "
+                f"encoder-decoder (whisper) blocks come with a later slice")
         layers.append(make[spec.kind]())
     params = {"embed": {"table": normal((cfg.vocab_size, d), 0.02)},
               "layers": layers, "final_norm": norm(d)}
@@ -249,8 +263,9 @@ def forward(cfg, params, batch, mode: str = "prefill", caches=None,
     Returns (logits, caches, aux): train gives the full (B, S, V) logits
     and no caches; prefill gives the last position's logits (B, 1, V) and
     fresh caches; decode the next logits and the updated caches (KV caches
-    written in place).  ``aux`` is the auxiliary loss, 0 for the dense and
-    xLSTM families, the sum over the MoE layers (f32) for the MoE family.
+    written in place).  ``aux`` is the auxiliary loss, 0 for the dense,
+    xLSTM and hybrid families, the sum over the MoE layers (f32) for the MoE
+    family.
     The JAX forward rematerializes each layer in training;
     at the port's sizes (one H100, 80 GB) the activations fit, so nothing
     is recomputed.

@@ -10,14 +10,15 @@ shards, a conv halo, a gathered sLSTM); those branches wait for the port's
 multi-GPU layer (ROADMAP A.15), and every function here is the JAX local
 path.
 
-The xLSTM prefill on the card goes through the kernel
-``kernels.mlstm_chunk``; on CPU tensors it runs ``linear_recurrence``.
+The xLSTM and Hymba prefills on the card go through the kernel
+``kernels.mlstm_chunk``; on CPU tensors they run ``linear_recurrence``.
 Decode runs ``recurrence_step`` on either device, as the JAX package
 computes it outside any kernel.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -26,10 +27,13 @@ from repro_torch.kernels.mlstm_plain import (  # noqa: F401  (re-exports)
     NEG, ScanState, combine, linear_recurrence, state_identity)
 
 
-def recurrence_step(state: ScanState, q, k, v, g, i):
-    """Single-token normalized decode update, scaled by 1/sqrt(dq).
-    q/k: (B,h,dq); v: (B,h,dv); g/i: (B,h)."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
+def recurrence_step(state: ScanState, q, k, v, g, i, *,
+                    normalize: bool = True, scale: Optional[float] = None):
+    """Single-token decode update: normalized and scaled by 1/sqrt(dq) by
+    default, as the xLSTM asks; ``normalize=False`` returns the numerator at
+    the new state's stabilizer m, as JAX does (Hymba's Mamba heads, with
+    ``scale=1.0``).  q/k: (B,h,dq); v: (B,h,dv); g/i: (B,h)."""
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
     kf = k.float()
     elem = ScanState(
         loga=g.float(), m=i.float(),
@@ -37,6 +41,8 @@ def recurrence_step(state: ScanState, q, k, v, g, i):
     new = combine(state, elem)
     qf = q.float()
     num = torch.einsum("bhq,bhqv->bhv", qf, new.C) * scale
+    if not normalize:
+        return num, new
     den = torch.einsum("bhq,bhq->bh", qf, new.n) * scale
     den = torch.maximum(torch.abs(den), torch.exp(-new.m))
     return num / den[..., None], new

@@ -1,13 +1,15 @@
 """Minimal batched serving engine: prefill + greedy/temperature decode.
 
 Twin of ``repro.serving.engine`` for every family the port's model
-covers (dense LMs, MoE and xLSTM).  On the card, attention runs through
-the Hopper flash-attention kernel in prefill and in every decode step; the
-MoE layers route and dispatch in plain PyTorch, as JAX computes them (a
-decode step at the capacity of its B tokens, at least 8 slots an expert,
-so it reads every expert bank); the xLSTM mLSTM blocks run their prefill
-through the Hopper ``mlstm_chunk`` kernel and decode by a plain recurrence
-step, as JAX computes it.
+covers (dense LMs, MoE, xLSTM and Hymba).  On the card, attention runs
+through the Hopper flash-attention kernel in prefill and in every decode
+step (a sliding-window layer's decode reads only the window's keys: the
+kernel's ``key_range``); the MoE layers route and dispatch in plain
+PyTorch, as JAX computes them (a decode step at the capacity of its B
+tokens, at least 8 slots an expert, so it reads every expert bank); the
+xLSTM mLSTM blocks and Hymba's Mamba heads run their prefill through the
+Hopper ``mlstm_chunk`` kernel and decode by a plain recurrence step, as
+JAX computes it.
 """
 from __future__ import annotations
 

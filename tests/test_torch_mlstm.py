@@ -162,6 +162,117 @@ def test_recurrence_step_matches_jax(start):
         np.testing.assert_allclose(a.numpy(), b, atol=TOL_F32, rtol=TOL_F32)
 
 
+def _mamba_inputs(seed, B, S, H, dq, dv):
+    """Hymba's Mamba-head inputs as numpy: c/b (B,S,dq), shared by every
+    head, v (B,S,H,dv), and the f32 gates of softplus dt, g = -dt exp(a)
+    and i = log(dt + 1e-9)."""
+    rng = np.random.default_rng(seed)
+    c = rng.standard_normal((B, S, dq)).astype(np.float32)
+    b = rng.standard_normal((B, S, dq)).astype(np.float32)
+    v = rng.standard_normal((B, S, H, dv)).astype(np.float32)
+    dt = np.logaddexp(0.0, rng.standard_normal((B, S, H)) - 2.0)
+    a = 0.3 * rng.standard_normal(H)
+    g = (-dt * np.exp(a)).astype(np.float32)
+    i = np.log(dt + 1e-9).astype(np.float32)
+    return c, b, v, g, i
+
+
+def _bcast(c, b, v, g, i):
+    """Torch and JAX arguments: q/k broadcast over the heads (an expand
+    view in torch, its head stride 0, as the Hymba block passes them)."""
+    H = v.shape[2]
+    tq, tk = (torch.from_numpy(a)[:, :, None].expand(-1, -1, H, -1)
+              for a in (c, b))
+    jq, jk = (jnp.broadcast_to(jnp.asarray(a)[:, :, None],
+                               a.shape[:2] + (H, a.shape[2]))
+              for a in (c, b))
+    return ([tq, tk, *_t(v, g, i)], [jq, jk, *_j(v, g, i)])
+
+
+@pytest.mark.parametrize("S,chunk", [(16, 128), (64, 16), (40, 8)])
+def test_unnormalized_recurrence_matches_jax(S, chunk):
+    """Hymba's form (normalize=False, scale=1, q/k 8 wide over v 32 wide)
+    against JAX's linear_recurrence at 1e-5, one chunk and chunk splits:
+    y, the raw final state (the same chunking on both sides), and the
+    wrapper's and ops' route on CPU tensors."""
+    t_args, j_args = _bcast(*_mamba_inputs(S + chunk, 2, S, 3, 8, 32))
+    assert t_args[0].stride(2) == 0
+    y, st = TS.linear_recurrence(*t_args, chunk=chunk, normalize=False,
+                                 scale=1.0)
+    jy, jst = JS.linear_recurrence(*j_args, chunk=chunk, normalize=False,
+                                   scale=1.0)
+    assert y.shape == (2, S, 3, 32) and st.C.shape == (2, 3, 8, 32)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), atol=TOL_F32,
+                               rtol=TOL_F32)
+    for got, exp in zip(st, _state_np(jst)):
+        np.testing.assert_allclose(got.numpy(), exp, atol=TOL_F32,
+                                   rtol=TOL_F32)
+    if chunk == 128:
+        for fn in (K.mlstm_chunk, ops.mlstm):
+            y2, _ = fn(*t_args, normalize=False, scale=1.0)
+            assert torch.equal(y2, y)
+
+
+def test_unnormalized_output_does_not_depend_on_the_chunk():
+    """The stabilizer of the unnormalized output is the state's running
+    max, the same whatever the chunking: 128 (one chunk), 16 and 8 agree
+    at 1e-5 (the kernel walks 32 a chunk)."""
+    t_args, _ = _bcast(*_mamba_inputs(21, 2, 128, 3, 8, 32))
+    ys = [TS.linear_recurrence(*t_args, chunk=c, normalize=False,
+                               scale=1.0)[0] for c in (128, 16, 8)]
+    for y in ys[1:]:
+        np.testing.assert_allclose(y.numpy(), ys[0].numpy(), atol=TOL_F32,
+                                   rtol=TOL_F32)
+
+
+def test_unnormalized_init_state_and_scale_match_jax():
+    """The unnormalized form continued from a prompt's state (init_state),
+    and a scale other than 1, against JAX at 1e-5."""
+    t_args, j_args = _bcast(*_mamba_inputs(23, 2, 30, 3, 8, 32))
+    t_first, t_rest = [a[:, :12] for a in t_args], [a[:, 12:] for a in t_args]
+    j_first, j_rest = [a[:, :12] for a in j_args], [a[:, 12:] for a in j_args]
+    for scale in (1.0, 0.3):
+        _, st = TS.linear_recurrence(*t_first, chunk=4, normalize=False,
+                                     scale=scale)
+        _, jst = JS.linear_recurrence(*j_first, chunk=4, normalize=False,
+                                      scale=scale)
+        y, fin = TS.linear_recurrence(*t_rest, chunk=6, init_state=st,
+                                      normalize=False, scale=scale)
+        jy, jfin = JS.linear_recurrence(*j_rest, chunk=6, normalize=False,
+                                        scale=scale, init_state=jst)
+        np.testing.assert_allclose(y.numpy(), np.asarray(jy), atol=TOL_F32,
+                                   rtol=TOL_F32)
+        for got, exp in zip(fin, _state_np(jfin)):
+            np.testing.assert_allclose(got.numpy(), exp, atol=TOL_F32,
+                                       rtol=TOL_F32)
+
+
+@pytest.mark.parametrize("start", ["prompt", "identity"])
+def test_unnormalized_recurrence_step_matches_jax(start):
+    """Hymba's decode step (normalize=False, scale=1) from a prompt's state
+    and from the identity, against JAX at 1e-5; a step from the prompt's
+    state continues the sequence the chunked form runs in one go."""
+    c, b, v, g, i = _mamba_inputs(31, 2, 13, 3, 8, 32)
+    t_args, j_args = _bcast(c, b, v, g, i)
+    head_t, head_j = [a[:, :12] for a in t_args], [a[:, :12] for a in j_args]
+    step_t, step_j = [a[:, 12] for a in t_args], [a[:, 12] for a in j_args]
+    _, st = TS.linear_recurrence(*head_t, normalize=False, scale=1.0)
+    _, jst = JS.linear_recurrence(*head_j, normalize=False, scale=1.0)
+    if start == "identity":
+        st, jst = TS.state_identity(st), JS.state_identity(jst)
+    got, new = TS.recurrence_step(st, *step_t, normalize=False, scale=1.0)
+    want, jnew = JS.recurrence_step(jst, *step_j, normalize=False, scale=1.0)
+    assert got.shape == (2, 3, 32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL_F32,
+                               rtol=TOL_F32)
+    for a, e in zip(new, _state_np(jnew)):
+        np.testing.assert_allclose(a.numpy(), e, atol=TOL_F32, rtol=TOL_F32)
+    if start == "prompt":
+        full, _ = TS.linear_recurrence(*t_args, normalize=False, scale=1.0)
+        np.testing.assert_allclose(got.numpy(), full[:, 12].numpy(),
+                                   atol=TOL_F32, rtol=TOL_F32)
+
+
 @pytest.mark.parametrize("with_state", [False, True])
 def test_causal_conv1d_matches_jax(with_state):
     rng = np.random.default_rng(4)
@@ -230,6 +341,25 @@ def test_wrapper_refuses_other_devices_and_bad_shapes():
         K.mlstm_chunk(q, k, v, g[:, :3], i)
     with pytest.raises(ValueError, match="alike"):
         K.mlstm_chunk(q, k[..., :8], v, g, i)
+
+
+def test_wgmma_path_keeps_the_square_normalized_form():
+    """The tensor-core path takes bf16, hd a multiple of 64, aligned, v as
+    wide as q/k and the normalized form; Hymba's form (unnormalized, q/k
+    16 wide, v 128 wide) goes to the CUDA-core path.  The wrapper takes v
+    wider than q/k and refuses q/k or v whose leading dims differ."""
+    bf16 = torch.bfloat16
+    assert K.choose_path(bf16, 64, True) == "wgmma"
+    assert K.choose_path(bf16, 64, True, dv=64) == "wgmma"
+    assert K.choose_path(bf16, 64, True, dv=128) == "simt"
+    assert K.choose_path(bf16, 64, True, normalize=False) == "simt"
+    assert K.choose_path(bf16, 16, True, dv=128, normalize=False) == "simt"
+    t_args, _ = _bcast(*_mamba_inputs(41, 1, 5, 2, 8, 32))
+    y, st = K.mlstm_chunk(*t_args, normalize=False, scale=1.0)
+    assert y.shape == (1, 5, 2, 32) and st.n.shape == (1, 2, 8)
+    q, k, v, g, i = t_args
+    with pytest.raises(ValueError, match="alike"):
+        K.mlstm_chunk(q, k, v[:, :4], g, i, normalize=False)
 
 
 def test_kernels_layer_imports_no_model_module():

@@ -140,9 +140,9 @@ def test_init_model_is_seeded_and_device_free():
     assert a["layers"][0]["attn"]["wq"].shape == (tc.d_model, tc.qkv_dim)
 
 
-@pytest.mark.parametrize("name", ["hymba-1.5b", "whisper-base"])
+@pytest.mark.parametrize("name", ["whisper-base"])
 def test_other_block_kinds_name_their_slice(name):
-    """The families still unported (hybrid, encoder-decoder) raise."""
+    """The family still unported (encoder-decoder) raises."""
     tc = tget(name).reduced()
     with pytest.raises(NotImplementedError, match="not ported"):
         TM.init_model(tc, torch.Generator().manual_seed(0), device="cpu")
