@@ -144,8 +144,14 @@ def _launch(q, k, v, causal, window):
         raise ValueError(f"flash_attention: head_dim {hd} is not built "
                          f"(built: {HEAD_DIMS})")
     if not 1 <= Sq <= Sk:
-        raise ValueError(f"flash_attention needs 1 <= Sq <= Sk; got "
-                         f"Sq={Sq}, Sk={Sk}")
+        # query row i sits at key position i + Sk - Sq; a non-causal call
+        # (cross-attention) reads no position, but the kernel's tiling
+        # still assumes the rows end at the last key
+        raise ValueError(
+            f"flash_attention needs 1 <= Sq <= Sk; got Sq={Sq}, Sk={Sk}"
+            + ("" if causal or Sq <= Sk else
+               ": the kernel takes no non-causal call with more queries "
+               "than keys (a decoder longer than its encoder's frames)"))
     if B > 65535 or KV > 65535:
         raise ValueError("flash_attention: batch and KV heads must each "
                          "be at most 65535 (grid limits)")

@@ -66,13 +66,22 @@ MASK_AGG_MODES = ("weights", "psum")
 
 
 def _split(batch, parts: int):
-    """Split every batch entry into ``parts`` contiguous row blocks."""
+    """Split every batch entry into ``parts`` contiguous row blocks: on
+    axis 0, except M-RoPE's (3, B, S) positions, whose rows are axis 1
+    (the reference's ``_split_batch``).  ``frames``, ``patch_embeds`` and
+    ``image_mask`` are split by row like the tokens."""
     B = batch["tokens"].shape[0]
     if B % parts:
         raise ValueError(f"{B} batch rows do not split into {parts} equal "
                          f"parts")
     n = B // parts
-    return [{k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+
+    def rows(k, v, i):
+        if k == "positions" and v.ndim == 3:
+            return v[:, i * n:(i + 1) * n]
+        return v[i * n:(i + 1) * n]
+
+    return [{k: rows(k, v, i) for k, v in batch.items()}
             for i in range(parts)]
 
 

@@ -66,7 +66,9 @@ def attn_core(q, k, v, qpos, kpos, *, causal=True, window=0, softcap=0.0):
 
 
 def attention(q, k, v, *, causal=True, window=0, softcap=0.0):
-    """Self-attention over a fresh sequence (positions 0..S-1).
+    """Attention over a fresh sequence (positions 0..S-1): causal
+    self-attention, or with ``causal=False`` an encoder's self-attention
+    or cross-attention over Sk >= Sq keys (every key visible).
 
     With grad enabled on q, k or v (training) the kernel runs through
     ``FlashAttention``, whose backward is the plain attention's.

@@ -1,8 +1,8 @@
 """Layer blocks: dense ``attn_mlp``, MoE ``attn_moe`` and ``attn_dense``,
-xLSTM ``mlstm`` and ``slstm``, Hymba ``hybrid``.
+xLSTM ``mlstm`` and ``slstm``, Hymba ``hybrid``, whisper's ``enc`` and
+``dec``.
 
-Twin of ``repro.models.blocks`` for the dense, MoE, xLSTM and hybrid
-families.
+Twin of ``repro.models.blocks`` for every family.
 Contract: ``block_forward(cfg, spec, params, x, ctx, cache) -> (x,
 cache', aux)``, the reference's ``apply_block``, where ``aux`` is the
 layer's f32 load-balance loss for ``attn_moe`` and None for the kinds
@@ -15,8 +15,12 @@ cache')`` alone.
 
 The caches follow JAX's layout: ``{"attn": {"k", "v"}}`` for attention
 (written in place at ``ctx.pos``), ``{"state": ScanState, "conv": tail}``
-for the mLSTM, ``{"state": (c, n, h, m)}`` for the sLSTM and ``{"attn":
-{"k", "v"}, "mamba": {"state": ScanState, "conv": tail}}`` for the hybrid.
+for the mLSTM, ``{"state": (c, n, h, m)}`` for the sLSTM, ``{"attn":
+{"k", "v"}, "mamba": {"state": ScanState, "conv": tail}}`` for the hybrid
+and ``{"attn": {"k", "v"}, "cross": {"ck", "cv"}}`` for whisper's decoder
+(the encoder output's keys and values, written once by prefill and read
+whole by every decode step).  The encoder's ``enc`` blocks run in train
+mode only, non-causally.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.mlstm_plain import ScanState
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
@@ -36,17 +41,19 @@ from repro_torch.models import ssm as S
 @dataclass(frozen=True)
 class LayerSpec:
     kind: str        # attn_mlp | attn_moe | attn_dense | mlstm | slstm |
-    #                  hybrid; enc and dec raise
+    #                  hybrid | enc | dec
     window: int = 0  # 0 = full attention
 
 
 class Ctx(NamedTuple):
     mode: str                      # train | prefill | decode
-    positions: Any                 # (B, S) int
+    positions: Any                 # (B, S) or (3, B, S) int
     pos: Optional[int] = None      # decode: host int cache write position
+    encoder_out: Any = None        # whisper cross-attention source (B,Se,D)
 
 
-def _attn_sublayer(cfg, p, x, ctx, cache, *, window: int):
+def _attn_sublayer(cfg, p, x, ctx, cache, *, window: int,
+                   causal: bool = True):
     B, Sx, _ = x.shape
     rope = cfg.rope_theta != 0.0
     q, k, v = A.project_qkv(cfg, p, x, ctx.positions, rope=rope)
@@ -56,9 +63,36 @@ def _attn_sublayer(cfg, p, x, ctx, cache, *, window: int):
                                   softcap=cfg.attn_logit_softcap)
         cache = {"k": ck, "v": cv}
     else:
-        y = A.attention(q, k, v, causal=True, window=window,
+        y = A.attention(q, k, v, causal=causal, window=window,
                         softcap=cfg.attn_logit_softcap)
         cache = {"k": k, "v": v} if ctx.mode == "prefill" else None
+    y = y.reshape(B, Sx, cfg.qkv_dim) @ p["wo"]
+    if "bo" in p:
+        y = y + p["bo"]
+    return y, cache
+
+
+def _cross_attn_sublayer(cfg, p, x, ctx, cache):
+    """Whisper's cross-attention: q from x, k/v from the encoder output
+    (train, prefill; prefill caches them as ``{"ck", "cv"}``) or from that
+    cache (decode), every key visible: the flash kernel non-causally,
+    Sq <= Se.  Returns (y, cache')."""
+    B, Sx, _ = x.shape
+    q = x @ p["wq"]
+    if "bq" in p:
+        q = q + p["bq"]
+    q = q.reshape(B, Sx, cfg.n_heads, cfg.head_dim)
+    if ctx.mode == "decode":
+        k, v = cache["ck"], cache["cv"]
+    else:
+        enc = ctx.encoder_out
+        k, v = enc @ p["wk"], enc @ p["wv"]
+        if "bk" in p:
+            k, v = k + p["bk"], v + p["bv"]
+        shape = (B, enc.shape[1], cfg.n_kv_heads, cfg.head_dim)
+        k, v = k.reshape(shape), v.reshape(shape)
+        cache = {"ck": k, "cv": v} if ctx.mode == "prefill" else None
+    y = A.attention(q, k, v, causal=False)
     y = y.reshape(B, Sx, cfg.qkv_dim) @ p["wo"]
     if "bo" in p:
         y = y + p["bo"]
@@ -199,20 +233,31 @@ def _slstm_block(cfg, p, x, ctx, cache):
 
 def _attn_ffn_block(cfg, spec, p, x, ctx, cache):
     """Attention then an FFN: the dense MLP (``attn_mlp``; ``attn_dense``,
-    deepseek's first layer, with ``dense_d_ff``) or the MoE (``attn_moe``,
-    whose aux it returns)."""
+    deepseek's first layer, with ``dense_d_ff``; whisper's ``enc``, whose
+    attention is non-causal, and ``dec``, which cross-attends to the
+    encoder output between the two) or the MoE (``attn_moe``, whose aux it
+    returns)."""
     h = L.apply_norm(cfg, p["norm1"], x)
     attn_cache = cache["attn"] if cache else None
     y, attn_cache = _attn_sublayer(cfg, p["attn"], h, ctx, attn_cache,
-                                   window=spec.window)
+                                   window=spec.window,
+                                   causal=spec.kind != "enc")
     x = x + y
+    new_cache = {"attn": attn_cache} if attn_cache is not None else None
+    if spec.kind == "dec":
+        h = L.apply_norm(cfg, p["norm_cross"], x)
+        y, cross_cache = _cross_attn_sublayer(
+            cfg, p["cross"], h, ctx, cache["cross"] if cache else None)
+        x = x + y
+        if cross_cache is not None:
+            new_cache = dict(new_cache or {}, cross=cross_cache)
     h = L.apply_norm(cfg, p["norm2"], x)
     if spec.kind == "attn_moe":
         y, aux = MOE.moe_apply(cfg, p["moe"], h)
     else:
         y, aux = L.apply_mlp(cfg, p["mlp"], h), None
     x = x + y
-    return x, ({"attn": attn_cache} if attn_cache is not None else None), aux
+    return x, new_cache, aux
 
 
 def block_forward(cfg, spec: LayerSpec, p, x, ctx: Ctx, cache):
@@ -224,16 +269,12 @@ def block_forward(cfg, spec: LayerSpec, p, x, ctx: Ctx, cache):
         x, cache = _mlstm_block(cfg, p, x, ctx, cache)
     elif spec.kind == "slstm":
         x, cache = _slstm_block(cfg, p, x, ctx, cache)
-    elif spec.kind in ("attn_mlp", "attn_moe", "attn_dense"):
+    elif spec.kind in ("attn_mlp", "attn_moe", "attn_dense", "enc", "dec"):
         x, cache, aux = _attn_ffn_block(cfg, spec, p, x, ctx, cache)
     elif spec.kind == "hybrid":
         x, cache = _hybrid_block(cfg, spec, p, x, ctx, cache)
     else:
-        raise NotImplementedError(
-            f"block kind {spec.kind!r} is not ported yet: the port covers "
-            f"the dense attn_mlp, the MoE attn_moe/attn_dense, the xLSTM "
-            f"mlstm/slstm and the Hymba hybrid blocks; encoder-decoder "
-            f"blocks come with a later slice")
+        raise ValueError(f"unknown layer kind {spec.kind!r}")
     return x, cache, aux
 
 
@@ -241,3 +282,45 @@ def apply_block(cfg, spec: LayerSpec, p, x, ctx: Ctx, cache):
     """(x, cache'): :func:`block_forward` without the aux."""
     x, cache, _ = block_forward(cfg, spec, p, x, ctx, cache)
     return x, cache
+
+
+# ---------------------------------------------------------------------------
+# Cache shapes (the decode entry point's).
+# ---------------------------------------------------------------------------
+
+
+def cache_struct(cfg, spec: LayerSpec, batch: int, cache_len: int, dtype):
+    """One layer's decode cache as tensors on the meta device (shapes and
+    dtypes, nothing allocated): the reference's ``cache_struct``."""
+    def meta(*shape, dt=dtype):
+        return torch.empty(shape, dtype=dt, device="meta")
+
+    hd = cfg.head_dim
+    f32 = torch.float32
+    out = {}
+    if spec.kind in ("attn_mlp", "attn_moe", "attn_dense", "dec", "hybrid"):
+        out["attn"] = {"k": meta(batch, cache_len, cfg.n_kv_heads, hd),
+                       "v": meta(batch, cache_len, cfg.n_kv_heads, hd)}
+    if spec.kind == "dec":
+        out["cross"] = {
+            "ck": meta(batch, cfg.encoder_seq_len, cfg.n_kv_heads, hd),
+            "cv": meta(batch, cfg.encoder_seq_len, cfg.n_kv_heads, hd)}
+    di, h = cfg.ssm_expand * cfg.d_model, cfg.n_heads
+    if spec.kind == "hybrid":
+        n = cfg.ssm_state
+        out["mamba"] = {
+            "state": ScanState(loga=meta(batch, h, dt=f32),
+                               m=meta(batch, h, dt=f32),
+                               C=meta(batch, h, n, di // h, dt=f32),
+                               n=meta(batch, h, n, dt=f32)),
+            "conv": meta(batch, cfg.ssm_conv_width - 1, di)}
+    if spec.kind == "mlstm":
+        out = {"state": ScanState(loga=meta(batch, h, dt=f32),
+                                  m=meta(batch, h, dt=f32),
+                                  C=meta(batch, h, di // h, di // h, dt=f32),
+                                  n=meta(batch, h, di // h, dt=f32)),
+               "conv": meta(batch, cfg.ssm_conv_width - 1, di)}
+    if spec.kind == "slstm":
+        z = meta(batch, h, cfg.d_model // h, dt=f32)
+        out = {"state": (z, z, z, z)}
+    return out

@@ -1,4 +1,4 @@
-"""Core layers: norms, MLPs, RoPE (standard and partial-rotary).
+"""Core layers: norms, MLPs, RoPE (standard, partial-rotary and M-RoPE).
 
 Twins of ``repro.models.layers`` with the same rounding points: norms
 compute in f32 and cast back; RoPE builds cos/sin in f32 and casts them to
@@ -60,7 +60,7 @@ def apply_mlp(cfg, params, x):
 
 
 # ---------------------------------------------------------------------------
-# RoPE: standard and partial-rotary.
+# RoPE: standard, partial-rotary, M-RoPE (qwen2-vl).
 # ---------------------------------------------------------------------------
 
 
@@ -84,17 +84,19 @@ def _rotate(x, cos, sin):
 
 
 def apply_rope(cfg, q, k, positions):
-    """q: (B,S,H,hd); k: (B,S,KV,hd); positions: (B,S)."""
+    """q: (B,S,H,hd); k: (B,S,KV,hd); positions: (B,S) or (3,B,S) for
+    M-RoPE (a non-M-RoPE arch reads stream 0 of a (3,B,S) array)."""
     if cfg.rope_theta == 0.0:
         return q, k  # learned-absolute-position archs (whisper)
-    if cfg.mrope_sections:
-        raise NotImplementedError(
-            "M-RoPE (qwen2-vl) is not ported yet: it comes with the "
-            "multimodal slice")
     hd = cfg.head_dim
     rot = int(hd * cfg.partial_rotary)
     rot -= rot % 2
-    cos, sin = _rope_cos_sin(positions, rot, cfg.rope_theta, q.dtype)
+    if cfg.mrope_sections:
+        cos, sin = _mrope_cos_sin(cfg, positions, rot, q.dtype)
+    else:
+        if positions.dim() == 3:
+            positions = positions[0]
+        cos, sin = _rope_cos_sin(positions, rot, cfg.rope_theta, q.dtype)
 
     def rope_one(x):
         if rot == hd:
@@ -103,3 +105,24 @@ def apply_rope(cfg, q, k, positions):
         return torch.cat([xr, x[..., rot:]], dim=-1)
 
     return rope_one(q), rope_one(k)
+
+
+def _mrope_cos_sin(cfg, positions, rot_dim: int, dtype):
+    """M-RoPE: positions (3, B, S) = the (t, h, w) streams; frequency f
+    takes the stream its section assigns (``mrope_sections`` counts
+    half-dim frequencies, summing to rot_dim // 2).  (B, S) positions are
+    three equal streams (decode), where M-RoPE is the standard RoPE.
+    Each frequency's angle is its stream's position times the frequency,
+    in f32, as the reference's one-hot selection computes it."""
+    if positions.dim() == 2:
+        positions = positions[None].expand((3,) + tuple(positions.shape))
+    half = rot_dim // 2
+    exponent = torch.arange(half, dtype=torch.float32,
+                            device=positions.device) / half
+    freqs = 1.0 / (cfg.rope_theta ** exponent)
+    sec = torch.cat([torch.full((s,), i, dtype=torch.int64,
+                                device=positions.device)
+                     for i, s in enumerate(cfg.mrope_sections)])   # (half,)
+    pos = positions.float()[sec]                   # (half, B, S)
+    ang = pos.permute(1, 2, 0) * freqs             # (B, S, half)
+    return torch.cos(ang).to(dtype), torch.sin(ang).to(dtype)

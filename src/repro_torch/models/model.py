@@ -1,9 +1,11 @@
 """Model assembly: layer specs, init, train/prefill/decode entry points.
 
-Twin of ``repro.models.model`` for the dense LM, MoE, xLSTM and hybrid
-(Hymba) families on one device.  Where JAX stacks the layers of a segment
+Twin of ``repro.models.model`` for every family (dense LMs, MoE, xLSTM,
+the Hymba hybrid, whisper's encoder-decoder and qwen2-vl's M-RoPE and
+patch merge) on one device.  Where JAX stacks the layers of a segment
 and runs them under ``jax.lax.scan``, the port keeps one parameter dict per
-layer (``params["layers"]``) and loops over them in Python.
+layer (``params["layers"]``; whisper's encoder ``params["encoder"]
+["layers"]``) and loops over them in Python.
 
 Parameters are plain dicts of tensors in the JAX layout: a dense weight is
 ``(d_in, d_out)`` and applied as ``x @ w``.
@@ -22,7 +24,7 @@ from repro_torch import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models.blocks import (Ctx, LayerSpec, block_forward,
-                                       slstm_ff_dim)
+                                       cache_struct, slstm_ff_dim)
 
 
 @dataclass(frozen=True)
@@ -58,6 +60,11 @@ def layer_specs(cfg) -> List[LayerSpec]:
     return specs
 
 
+def encoder_layer_specs(cfg) -> List[LayerSpec]:
+    return [LayerSpec(kind="enc", window=0)
+            for _ in range(cfg.n_encoder_layers)]
+
+
 def build_segments(specs: Sequence[LayerSpec]) -> List[Segment]:
     n = len(specs)
     # cyclic grouping with the smallest period
@@ -83,6 +90,10 @@ def build_segments(specs: Sequence[LayerSpec]) -> List[Segment]:
 # ---------------------------------------------------------------------------
 
 
+#: rows of whisper's learned decoder position table (the reference's)
+DEC_POS_LEN = 32_768
+
+
 def _dtype(cfg):
     return getattr(torch, cfg.dtype)
 
@@ -94,12 +105,15 @@ def init_model(cfg, generator: torch.Generator, device=None, dtype=None):
     device, then cast to ``dtype`` and moved to ``device``: one CPU seed
     gives the same weights on every device, and a CUDA generator draws a
     model too large for the host's memory in f32 (full-depth
-    deepseek-moe-16b) on the card, one weight at a time.
+    deepseek-moe-16b) on the card, one weight at a time.  On the meta
+    device nothing is drawn: the tree's shapes and dtypes, at any size.
     """
     device = resolve_device(device)
     dtype = dtype or _dtype(cfg)
 
     def normal(shape, std):
+        if device.type == "meta":
+            return torch.empty(shape, dtype=dtype, device=device)
         t = torch.randn(shape, generator=generator, dtype=torch.float32,
                         device=generator.device)
         return (t * std).to(device=device, dtype=dtype)
@@ -128,7 +142,7 @@ def init_model(cfg, generator: torch.Generator, device=None, dtype=None):
             p["b_down"] = const((d,), 0.0)
         return p
 
-    def attention():
+    def attn_weights():
         attn = {"wq": dense(d, qd), "wk": dense(d, kvd), "wv": dense(d, kvd),
                 "wo": dense(qd, d)}
         if cfg.attn_bias:
@@ -139,7 +153,10 @@ def init_model(cfg, generator: torch.Generator, device=None, dtype=None):
         if cfg.qk_norm:
             attn["q_norm"] = const((cfg.head_dim,), 1.0)
             attn["k_norm"] = const((cfg.head_dim,), 1.0)
-        return {"norm1": norm(d), "attn": attn, "norm2": norm(d)}
+        return attn
+
+    def attention():
+        return {"norm1": norm(d), "attn": attn_weights(), "norm2": norm(d)}
 
     def attn_mlp():
         return dict(attention(), mlp=mlp(cfg.d_ff))
@@ -186,21 +203,24 @@ def init_model(cfg, generator: torch.Generator, device=None, dtype=None):
         return {"norm1": norm(d), "slstm": cell, "w_out": dense(d, d),
                 "norm2": norm(d), "mlp": mlp(slstm_ff_dim(cfg))}
 
+    def dec():   # whisper's decoder: self-attention, cross-attention, MLP
+        return dict(attn_mlp(), norm_cross=norm(d), cross=attn_weights())
+
     d, qd, kvd = cfg.d_model, cfg.qkv_dim, cfg.kv_dim
     make = {"attn_mlp": attn_mlp, "attn_dense": attn_dense,
             "attn_moe": attn_moe, "mlstm": mlstm, "slstm": slstm,
-            "hybrid": hybrid}
-    layers = []
-    for spec in layer_specs(cfg):
-        if spec.kind not in make:
-            raise NotImplementedError(
-                f"block kind {spec.kind!r} is not ported yet: "
-                f"encoder-decoder (whisper) blocks come with a later slice")
-        layers.append(make[spec.kind]())
+            "hybrid": hybrid, "enc": attn_mlp, "dec": dec}
+    layers = [make[s.kind]() for s in layer_specs(cfg)]   # drawn first
     params = {"embed": {"table": normal((cfg.vocab_size, d), 0.02)},
               "layers": layers, "final_norm": norm(d)}
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": dense(d, cfg.vocab_size)}
+    if cfg.is_encoder_decoder:
+        params["encoder"] = {
+            "layers": [make[s.kind]() for s in encoder_layer_specs(cfg)],
+            "final_norm": norm(d),
+            "pos_table": normal((cfg.encoder_seq_len, d), 0.02)}
+        params["dec_pos_table"] = normal((DEC_POS_LEN, d), 0.02)
     return params
 
 
@@ -209,10 +229,16 @@ def init_model(cfg, generator: torch.Generator, device=None, dtype=None):
 # ---------------------------------------------------------------------------
 
 
-def embed_tokens(cfg, params, tokens):
+def embed_tokens(cfg, params, tokens, batch=None):
+    """Token embeddings; where ``batch`` carries ``patch_embeds`` (B, S,
+    D), the rows its ``image_mask`` (B, S) sets take them instead, cast to
+    the embeddings' dtype (qwen2-vl's stubbed vision frontend)."""
     x = F.embedding(tokens, params["embed"]["table"])
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+    if batch is not None and "patch_embeds" in batch:
+        x = torch.where(batch["image_mask"][..., None].bool(),
+                        batch["patch_embeds"].to(x.dtype), x)
     return x
 
 
@@ -230,15 +256,19 @@ def lm_logits(cfg, params, x):
 def check_positions(positions):
     """Train and prefill attention masks by index, so their positions must
     be 0..S-1 on every row; others (offset, packed) raise ``ValueError``
-    rather than get a mask other than JAX's.  Only host data is checked:
-    numpy arrays and CPU tensors.  A tensor on the card is never read (that
-    would wait for the device); ``launch.train`` checks its batches while
-    they are still numpy."""
+    rather than get a mask other than JAX's.  M-RoPE's (3, B, S) positions
+    are checked on stream 0 (t), the one the reference masks by; the h/w
+    streams only rotate.  Only host data is checked: numpy arrays and CPU
+    tensors.  A tensor on the card is never read (that would wait for the
+    device); ``launch.train`` checks its batches while they are still
+    numpy."""
     if isinstance(positions, torch.Tensor):
         if positions.device.type != "cpu":
             return
         positions = positions.numpy()
     pos = np.asarray(positions)
+    if pos.ndim == 3:
+        pos = pos[0]
     if not np.array_equal(pos, np.broadcast_to(np.arange(pos.shape[-1]),
                                                pos.shape)):
         raise ValueError(
@@ -247,38 +277,57 @@ def check_positions(positions):
             "positions are not supported")
 
 
-def forward(cfg, params, batch, mode: str = "prefill", caches=None,
+def _run_encoder(cfg, params, frames):
+    """Whisper's encoder over precomputed frame embeddings (B, Se, D),
+    cast to the config's dtype: learned positions, non-causal blocks in
+    train mode (no caches), the final norm."""
+    enc = params["encoder"]
+    x = frames.to(_dtype(cfg)) + enc["pos_table"][:frames.shape[1]]
+    B, Se = frames.shape[:2]
+    ctx = Ctx(mode="train", positions=torch.arange(
+        Se, device=frames.device).expand(B, Se))
+    for spec, p in zip(encoder_layer_specs(cfg), enc["layers"]):
+        x, _, _ = block_forward(cfg, spec, p, x, ctx, None)
+    return L.apply_norm(cfg, enc["final_norm"], x)
+
+
+def forward(cfg, params, batch, mode: str = "train", caches=None,
             pos=None):
     """Train, prefill or decode.
 
-    batch: tokens (B, S) and positions (B, S).  RoPE reads
+    batch: tokens (B, S) and positions (B, S), or (3, B, S) for M-RoPE;
+    qwen2-vl may add ``patch_embeds`` (B, S, D) and ``image_mask`` (B, S),
+    whisper needs ``frames`` (B, Se, D) except in decode.  RoPE reads
     ``batch["positions"]``, as the JAX forward does, but the attention mask
     of train and prefill is by index (the flash kernel's aligned-suffix
     rule), where JAX masks by position: so train and prefill take the
-    positions 0..S-1 on every row (``SyntheticTokens`` and the serving
-    engine give them) and raise ``ValueError`` for others given on the
-    host (:func:`check_positions`).  Decode has S == 1, a host int ``pos``
-    and ``caches``.
+    positions 0..S-1 on every row (stream 0 of M-RoPE's) and raise
+    ``ValueError`` for others given on the host (:func:`check_positions`).
+    Decode has S == 1, a host int ``pos`` and ``caches``.
 
     Returns (logits, caches, aux): train gives the full (B, S, V) logits
     and no caches; prefill gives the last position's logits (B, 1, V) and
     fresh caches; decode the next logits and the updated caches (KV caches
-    written in place).  ``aux`` is the auxiliary loss, 0 for the dense,
-    xLSTM and hybrid families, the sum over the MoE layers (f32) for the MoE
-    family.
+    written in place).  ``aux`` is the auxiliary loss, 0 for every family
+    but MoE, the sum over the MoE layers (f32) for the MoE family.
     The JAX forward rematerializes each layer in training;
     at the port's sizes (one H100, 80 GB) the activations fit, so nothing
     is recomputed.
     """
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode {mode!r}: want train, prefill or decode")
-    if cfg.is_encoder_decoder or "patch_embeds" in batch:
-        raise NotImplementedError(
-            "encoder-decoder and vision inputs are not ported yet")
+    positions = batch["positions"]
     if mode != "decode":
-        check_positions(batch["positions"])
-    x = embed_tokens(cfg, params, batch["tokens"])
-    ctx = Ctx(mode=mode, positions=batch["positions"], pos=pos)
+        check_positions(positions)
+    x = embed_tokens(cfg, params, batch["tokens"], batch)
+    encoder_out = None
+    if cfg.is_encoder_decoder:
+        qpos = positions[0] if positions.dim() == 3 else positions
+        x = x + params["dec_pos_table"][qpos]
+        if mode != "decode":
+            encoder_out = _run_encoder(cfg, params, batch["frames"])
+    ctx = Ctx(mode=mode, positions=positions, pos=pos,
+              encoder_out=encoder_out)
     new_caches = []
     aux = x.new_zeros((), dtype=torch.float32)
     for i, (spec, p) in enumerate(zip(layer_specs(cfg), params["layers"])):
@@ -377,3 +426,12 @@ def pad_caches(caches, target_len: int):
         return node
 
     return walk(caches)
+
+
+def cache_structs(cfg, batch: int, cache_len: int, dtype=None):
+    """Every layer's decode cache as tensors on the meta device (shapes and
+    dtypes only), one entry a layer: the reference's ``cache_structs``
+    unstacked from its segments."""
+    dtype = dtype or _dtype(cfg)
+    return [cache_struct(cfg, spec, batch, cache_len, dtype)
+            for spec in layer_specs(cfg)]

@@ -1,15 +1,16 @@
 """Minimal batched serving engine: prefill + greedy/temperature decode.
 
-Twin of ``repro.serving.engine`` for every family the port's model
-covers (dense LMs, MoE, xLSTM and Hymba).  On the card, attention runs
-through the Hopper flash-attention kernel in prefill and in every decode
-step (a sliding-window layer's decode reads only the window's keys: the
-kernel's ``key_range``); the MoE layers route and dispatch in plain
-PyTorch, as JAX computes them (a decode step at the capacity of its B
-tokens, at least 8 slots an expert, so it reads every expert bank); the
-xLSTM mLSTM blocks and Hymba's Mamba heads run their prefill through the
-Hopper ``mlstm_chunk`` kernel and decode by a plain recurrence step, as
-JAX computes it.
+Twin of ``repro.serving.engine`` for every family (dense LMs, MoE, xLSTM,
+Hymba, whisper and qwen2-vl).  On the card, attention runs through the
+Hopper flash-attention kernel in prefill and in every decode step (a
+sliding-window layer's decode reads only the window's keys: the kernel's
+``key_range``; whisper's cross-attention reads every frame's keys,
+non-causally, from the cache its prefill wrote); the MoE layers route
+and dispatch in plain PyTorch, as JAX computes them (a decode step at
+the capacity of its B tokens, at least 8 slots an expert, so it reads
+every expert bank); the xLSTM mLSTM blocks and Hymba's Mamba heads run
+their prefill through the Hopper ``mlstm_chunk`` kernel and decode by a
+plain recurrence step, as JAX computes it.
 """
 from __future__ import annotations
 
@@ -50,13 +51,17 @@ class ServeEngine:
 
     # reprolint: hot-path
     def generate(self, tokens: np.ndarray, n_new: int,
-                 temperature: float = 0.0, seed: int = 0) -> np.ndarray:
+                 temperature: float = 0.0, seed: int = 0,
+                 frames: Optional[np.ndarray] = None) -> np.ndarray:
         """tokens: (B, S) prompt -> (B, n_new) generated ids (int32).
 
-        Greedy decoding is argmax.  Temperature decoding draws from the
-        ``jax.random`` twin as JAX does: ``categorical`` with ``PRNGKey(seed)``
-        for the first token, then with a key split off once a token, so the
-        same seed gives JAX's ids.
+        An encoder-decoder (whisper) takes ``frames`` (B, Se, D), zeros
+        when none are given; an M-RoPE arch (qwen2-vl) gets (3, B, S)
+        positions, three equal text streams, as the reference's engine
+        gives them.  Greedy decoding is argmax.  Temperature decoding
+        draws from the ``jax.random`` twin as JAX does: ``categorical``
+        with ``PRNGKey(seed)`` for the first token, then with a key split
+        off once a token, so the same seed gives JAX's ids.
         """
         B, S = tokens.shape
         dev = self.device
@@ -69,11 +74,18 @@ class ServeEngine:
 
         with torch.inference_mode():
             toks = torch.as_tensor(tokens, dtype=torch.int64, device=dev)
-            positions = torch.arange(S, device=dev).expand(B, S)
+            batch = {"tokens": toks,
+                     "positions": torch.arange(S, device=dev).expand(B, S)}
+            if self.cfg.mrope_sections:
+                batch["positions"] = batch["positions"].expand(3, B, S)
+            if self.cfg.is_encoder_decoder:
+                batch["frames"] = (
+                    torch.as_tensor(frames, device=dev) if frames is not None
+                    else torch.zeros((B, self.cfg.encoder_seq_len,
+                                      self.cfg.d_model), device=dev))
             with span("serve.prefill", batch=B, seq=S):
-                last_logits, caches = M.prefill(
-                    self.cfg, self.params,
-                    {"tokens": toks, "positions": positions})
+                last_logits, caches = M.prefill(self.cfg, self.params,
+                                                batch)
             caches = M.pad_caches(caches, S + n_new)
             out = []
             nxt = self._sample(last_logits, temperature, key)

@@ -16,6 +16,9 @@ after ``jax.tree.map(np.asarray, params)`` and returns the dicts that
   dicts (7 mLSTM + 1 sLSTM, each leaf stacked over 3 repeats) becomes 24
   layer dicts, the sLSTM cell as its own ``slstm`` dict (``w``, ``r``,
   ``bias``).
+* Whisper's ``encoder.segments`` unstack into ``encoder.layers``; its
+  ``encoder.final_norm``, ``encoder.pos_table`` and ``dec_pos_table``
+  are carried as they are.
 
 ``state_from_jax`` carries a whole train state ``{"params", "opt"[,
 "ef"]}``, ``runtime_model_from_jax`` a DMM ``RuntimeModel``'s params
@@ -29,7 +32,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.runtime_model.api import RuntimeModel
-from repro_torch.models.model import build_segments, layer_specs
+from repro_torch.models.model import (build_segments, encoder_layer_specs,
+                                      layer_specs)
 
 
 def _tensor(a, device):
@@ -49,22 +53,37 @@ def _tree(node, device, index=None):
     return _tensor(a if index is None else a[index], device)
 
 
-def from_jax(cfg, params_np, device=None):
-    """JAX parameter tree (numpy leaves) -> port parameters on ``device``,
-    each in its array's own dtype."""
-    device = resolve_device(device)
+def _layers(specs, segments_np, device):
+    """A JAX ``segments`` list -> one dict a layer, in scan order."""
     layers = []
-    for seg, sp in zip(build_segments(layer_specs(cfg)),
-                       params_np["segments"]):
+    for seg, sp in zip(build_segments(specs), segments_np):
         for r in range(seg.repeats):
             index = r if seg.repeats > 1 else None
             for pi in range(len(seg.pattern)):
                 layers.append(_tree(sp[pi], device, index))
+    return layers
+
+
+def from_jax(cfg, params_np, device=None):
+    """JAX parameter tree (numpy leaves) -> port parameters on ``device``,
+    each in its array's own dtype.  Whisper's encoder segments unstack as
+    the decoder's do, into ``encoder.layers``; its final norm, the encoder
+    and decoder position tables come across whole."""
+    device = resolve_device(device)
     params = {"embed": _tree(params_np["embed"], device),
-              "layers": layers,
+              "layers": _layers(layer_specs(cfg), params_np["segments"],
+                                device),
               "final_norm": _tree(params_np["final_norm"], device)}
     if not cfg.tie_embeddings:
         params["lm_head"] = _tree(params_np["lm_head"], device)
+    if cfg.is_encoder_decoder:
+        enc = params_np["encoder"]
+        params["encoder"] = {
+            "layers": _layers(encoder_layer_specs(cfg), enc["segments"],
+                              device),
+            "final_norm": _tree(enc["final_norm"], device),
+            "pos_table": _tree(enc["pos_table"], device)}
+        params["dec_pos_table"] = _tree(params_np["dec_pos_table"], device)
     return params
 
 

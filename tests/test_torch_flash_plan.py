@@ -9,15 +9,20 @@ written out plainly and held to ``repro.kernels.ref.reference_attention``:
   merge kernel does, f32, atol 2e-5 (tests/test_kernels.py's f32 bound);
 * the split plan (``split_plan``), a hypothesis property: its ranges cover
   the visible keys exactly once, none is empty, and the visible keys are
-  exactly those the window start and the causal edge leave;
+  exactly those the window start and the causal edge leave; non-causally
+  (whisper's cross-attention) every key, Sq 1 over Sk 1536 included;
 * the wgmma path's numerics: 64-key tiles from a 64-aligned start, online
   softmax in f32, P rounded to bf16 before P V, bf16 inputs, at the serve
   and train prefill shapes, atol 3e-2 (the card's bf16 bound in
   chip_smoke.py);
-* ``choose_path``, a pure function of dtype, rows and alignment;
+* ``choose_path``, a pure function of dtype, rows and alignment, for
+  every ``chip_smoke.FLASH_CASES`` row;
 * the library name of a kernel, which covers the headers under csrc/.
 """
+import importlib.util
 import math
+import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -31,6 +36,7 @@ from repro_torch.kernels import flash_attention as FA
 
 torch.set_num_threads(2)
 
+REPO = Path(__file__).resolve().parents[1]
 F32_ATOL = 2e-5
 BF16_ATOL = 3e-2
 NEG_INF = float("-inf")
@@ -155,6 +161,41 @@ def test_split_plan_ranges_match_oracle(Sq, Sk, window, n_bkv):
                                atol=F32_ATOL)
 
 
+# non-causal (cross-attention): whisper's cross decode over its 1536
+# frames (B 2 x KV 8 heads), a short query block over more keys, GQA
+NONCAUSAL_COMBINE_CASES = [
+    (2, 1, 1536, 8, 8, 16, 256),
+    (2, 1, 37, 14, 2, 16, 9),
+    (2, 5, 29, 6, 2, 16, 4),
+    (1, 32, 300, 8, 8, 16, 64),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,chunk", NONCAUSAL_COMBINE_CASES)
+def test_split_kv_combine_non_causal_matches_oracle(B, Sq, Sk, H, KV, hd,
+                                                    chunk):
+    q, k, v = _qkv(14, B, Sq, Sk, H, KV, hd)
+    got = split_kv_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                             _chunks(0, Sk, chunk), causal=False)
+    np.testing.assert_allclose(got.numpy(), _oracle(q, k, v, False, 0),
+                               atol=F32_ATOL)
+
+
+@pytest.mark.parametrize("Sq,Sk,n_bkv", [
+    (1, 1536, 32), (1, 1536, 1), (32, 1536, 32), (4, 300, 8), (9, 9, 2)])
+def test_split_plan_non_causal_ranges_match_oracle(Sq, Sk, n_bkv):
+    """Cross decode (Sq 1 over whisper's 1536 frames), the serve prompt's
+    cross prefill (Sq 32) and Sq = Sk: the plan covers every key, and its
+    ranges merged give the oracle's answer."""
+    q, k, v = _qkv(15, 1, Sq, Sk, 8, 8, 16)
+    plan = FA.split_plan(Sq, Sk, False, 0, n_bkv)
+    assert (plan.k_begin, plan.k_end) == (0, Sk)
+    got = split_kv_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                             _ranges(plan), causal=False)
+    np.testing.assert_allclose(got.numpy(), _oracle(q, k, v, False, 0),
+                               atol=F32_ATOL)
+
+
 def test_split_plan_at_the_serve_shapes():
     # qwen2-0.5b's serve decode (B*KV = 8) from its first step to its last
     for Sk in range(129, 161):
@@ -191,6 +232,24 @@ def test_split_plan_property(Sq, extra, causal, window, n_bkv, n_sm):
         seen &= kpos[None] > qpos[:, None] - window
     cols = np.flatnonzero(seen.any(0))
     assert plan.k_begin == cols[0] and plan.k_end == cols[-1] + 1
+
+
+@settings(max_examples=200, deadline=None)
+@given(Sq=st.integers(1, 64), extra=st.integers(0, 3000),
+       n_bkv=st.integers(1, 300), n_sm=st.integers(1, 200))
+def test_split_plan_non_causal_property(Sq, extra, n_bkv, n_sm):
+    """Non-causal, no window (cross-attention, Sq <= Sk): every key, in
+    ranges of at least SPLIT_MIN_KEYS but the last, none empty."""
+    Sk = Sq + extra
+    plan = FA.split_plan(Sq, Sk, False, 0, n_bkv, n_sm)
+    ranges = _ranges(plan)
+    assert (plan.k_begin, plan.k_end) == (0, Sk)
+    assert 1 <= plan.splits <= FA.SPLIT_MAX and len(ranges) == plan.splits
+    assert ranges[0][0] == 0 and ranges[-1][1] == Sk
+    assert all(b0 == a1 for (_, b0), (a1, _) in zip(ranges, ranges[1:]))
+    assert all(b > a for a, b in ranges)
+    if plan.splits > 1:
+        assert all(b - a >= FA.SPLIT_MIN_KEYS for a, b in ranges[:-1])
 
 
 def tiled_attention(q, k, v, causal=True, window=0, round_p=True, tile=64,
@@ -260,6 +319,55 @@ def test_tiled_model_without_rounding_matches_oracle(Sq, Sk, window):
                           causal=True, window=window, round_p=False)
     np.testing.assert_allclose(got.numpy(), _oracle(q, k, v, True, window),
                                atol=F32_ATOL)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd", [
+    (1, 1536, 1536, 8, 8, 64), (2, 128, 1536, 8, 8, 64),
+    (2, 100, 100, 8, 8, 64)])
+def test_bf16_p_rounding_non_causal_within_tolerance(B, Sq, Sk, H, KV, hd):
+    """Whisper's non-causal calls on the wgmma path: the encoder (1536
+    frames), the train cross-attention (Sq 128 over 1536) and a ragged
+    100: every tile of every row block visible."""
+    q, k, v = _qkv(16, B, Sq, Sk, H, KV, hd)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    got = tiled_attention(tq, tk, tv, causal=False)
+    want = _oracle(*(t.float().numpy() for t in (tq, tk, tv)), False, 0,
+                   dtype=jnp.bfloat16)
+    err = np.abs(got.float().numpy() - want).max()
+    assert err <= BF16_ATOL, err
+
+
+@pytest.mark.parametrize("Sq,Sk", [(72, 200), (200, 200)])
+def test_tiled_model_non_causal_matches_oracle(Sq, Sk):
+    q, k, v = _qkv(17, 2, Sq, Sk, 14, 2, 16)
+    got = tiled_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                          causal=False, round_p=False)
+    np.testing.assert_allclose(got.numpy(), _oracle(q, k, v, False, 0),
+                               atol=F32_ATOL)
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules.setdefault("chip_smoke", mod)   # its dataclass looks it up
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_choose_path_for_every_flash_case():
+    """Each chip_smoke.py flash case takes the path it asserts on the card
+    (fresh tensors are 16-byte aligned; an ``offset`` case is not), its
+    non-causal cases included: whisper's encoder and cross-attention,
+    qwen2-vl's 7 query heads a KV head at hd 128."""
+    cases = _chip_smoke().FLASH_CASES
+    assert any(not c.causal for c in cases)
+    assert any(c.H // c.KV == 7 and c.hd == 128 for c in cases)
+    for c in cases:
+        got = FA.choose_path(getattr(torch, c.dtype), c.Sq, c.H // c.KV,
+                             c.offset == 0)
+        assert got == c.path, c.name
+        assert 1 <= c.Sq <= c.Sk and c.hd in FA.HEAD_DIMS, c.name
 
 
 @pytest.mark.parametrize("dtype,Sq,G,aligned,want", [

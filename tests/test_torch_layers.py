@@ -92,9 +92,3 @@ def test_apply_rope(name, partial):
         rot = int(16 * partial)
         np.testing.assert_array_equal(tq[..., rot:].numpy(), q[..., rot:])
 
-
-def test_mrope_names_its_later_slice():
-    _, tc = _cfgs("qwen2-vl-7b")
-    q = torch.zeros(1, 2, 4, 16)
-    with pytest.raises(NotImplementedError, match="multimodal slice"):
-        TL.apply_rope(tc, q, q[:, :, :2], torch.zeros(1, 2, dtype=torch.int64))

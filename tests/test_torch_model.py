@@ -140,12 +140,20 @@ def test_init_model_is_seeded_and_device_free():
     assert a["layers"][0]["attn"]["wq"].shape == (tc.d_model, tc.qkv_dim)
 
 
-@pytest.mark.parametrize("name", ["whisper-base"])
-def test_other_block_kinds_name_their_slice(name):
-    """The family still unported (encoder-decoder) raises."""
-    tc = tget(name).reduced()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TM.init_model(tc, torch.Generator().manual_seed(0), device="cpu")
+@pytest.mark.parametrize("name", ["bench_tiny", "qwen2-0.5b"])
+def test_forward_defaults_to_train_mode_as_jax(name):
+    """Both packages' ``forward`` called without ``mode``: the reference's
+    default is train, so the full (B, S, V) logits and no caches."""
+    jc, tc, jp, tp, toks = _setup(name)
+    pos_np = np.broadcast_to(np.arange(S)[None], (B, S))
+    jl, jcache, _ = jax.jit(lambda p, b: JM.forward(jc, p, b))(
+        jp, {"tokens": jnp.asarray(toks), "positions": jnp.asarray(pos_np)})
+    tl, tcache, _ = TM.forward(tc, tp, {
+        "tokens": torch.as_tensor(toks, dtype=torch.int64),
+        "positions": torch.arange(S).expand(B, S)})
+    assert tl.shape == jl.shape == (B, S, tc.vocab_size)
+    assert tcache is None
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-5)
 
 
 def test_packed_positions_raise_where_jax_masks_by_position(monkeypatch):
