@@ -12,8 +12,11 @@
 // Rows are packed as in the Pallas kernel's GQA layout: for one (batch, KV
 // head), row r = i*G + g is query position i of the group's head g, so the
 // G query heads that share a KV head read each K/V tile once.  Strides are
-// arguments (the decode views cache[:, :pos+1] go in with no copy); only
-// the last dimension must be contiguous.
+// arguments (cache views go in with no copy); only the last dimension must
+// be contiguous.  Decode passes the whole padded cache and its key count
+// as a device int (`Params::len`), so one CUDA graph of a decode step
+// serves every position: the CUDA-core and split paths read the count and
+// derive the query position and the visible keys from it.
 //
 // Three paths; the wrapper (flash_attention.py `choose_path`) picks one by
 // dtype, the number of packed rows and the 16-byte alignment of the inputs:
@@ -106,7 +109,15 @@ struct Params {
   // with more than one split, `part` holds their partials
   int k_begin, k_end, chunk, splits;
   float* part;
+  // the key count on the device (decode under a CUDA graph: one capture
+  // serves every cache length); null takes Sk and [k_begin, k_end) above
+  const int* len;
 };
+
+// The keys this call attends over: Sk, or the device's count when set.
+__device__ __forceinline__ int key_count(const Params& p) {
+  return p.len ? *p.len : p.Sk;
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -152,14 +163,15 @@ __global__ void __launch_bounds__(NT) flash_fwd(Params p) {
   const int rc = active ? r : rows - 1;   // idle rows shadow the last one
   const int qi = rc / G;
   const int h = kvh * G + rc % G;
-  const int off = p.Sk - p.Sq;
+  const int Sk = key_count(p);
+  const int off = Sk - p.Sq;
   const int qpos = qi + off;
 
   // Keys any row of this block can see.
   const int last = min(rows, row0 + BQ) - 1;
   const int qpos_lo = row0 / G + off;
   const int qpos_hi = last / G + off;
-  const int k_end = p.causal ? min(p.Sk, qpos_hi + 1) : p.Sk;
+  const int k_end = p.causal ? min(Sk, qpos_hi + 1) : Sk;
   int k_begin = p.window > 0 ? max(0, qpos_lo - p.window + 1) : 0;
   k_begin -= k_begin % BK;
 
@@ -506,10 +518,20 @@ __global__ void __launch_bounds__(ST_THREADS) flash_split_tc(Params p) {
   const int lane = tid & 31;
   const int g = lane >> 2;
   const int t4 = lane & 3;
-  const int off = p.Sk - p.Sq;
-  const int ks0 = p.k_begin + split * p.chunk;
-  const int ke0 = min(p.k_end, ks0 + p.chunk);
-  const int n_tiles = (ke0 - ks0 + ST_KEYS - 1) / ST_KEYS;
+  // With the key count on the device, the host's plan fixes only the
+  // grid (`splits` ranges of `chunk` keys, sized for the padded cache) and
+  // the visible keys [k_begin, k_end) follow from the count here, as
+  // `key_range` computes them on the host; a split past them is empty.
+  const int Sk = key_count(p);
+  int k_begin = p.k_begin, k_end = p.k_end;
+  if (p.len) {
+    k_end = Sk;
+    k_begin = p.window > 0 ? max(0, Sk - p.Sq - p.window + 1) : 0;
+  }
+  const int off = Sk - p.Sq;
+  const int ks0 = k_begin + split * p.chunk;
+  const int ke0 = min(k_end, ks0 + p.chunk);
+  const int n_tiles = max(0, (ke0 - ks0 + ST_KEYS - 1) / ST_KEYS);
   const float sl2 = p.scale * LOG2E;
 
   const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q);
@@ -543,8 +565,9 @@ __global__ void __launch_bounds__(ST_THREADS) flash_split_tc(Params p) {
                          ok ? 16 : 0);
     }
   };
-  load_tile(ks0, 0);
+  if (n_tiles > 0) load_tile(ks0, 0);
   hopper::cp_async_commit();
+  if (n_tiles == 0) hopper::cp_async_wait<0>();   // q's copies land
 
   // this thread's rows of the accumulator layout: g and g + 8
   int qpos[2];
@@ -797,6 +820,7 @@ int launch(const Params& p, int path, cudaStream_t stream) {
       return static_cast<int>(cudaGetLastError());
     }
     if (path == PATH_WGMMA) {
+      if (p.len) return -3;
       using S = TcShape<HD>;
       static bool allowed = false;
       const int err = allow_smem(flash_fwd_tc<HD>, S::SMEM, allowed);
@@ -824,6 +848,10 @@ int dispatch(const Params& p, int hd, int path, cudaStream_t stream) {
 // 2 split-KV (bf16).  Strides are in elements.  The split path reads keys
 // [k_begin, k_end) in `splits` ranges of `chunk` keys and, with more than
 // one split, keeps its partials in `part` (B*KV*splits*rows*(hd+2) f32).
+// `len`, when not null, is a device int32: the keys are its first `*len`
+// slots of the Sk given, query row i sits at i + *len - Sq, and the split
+// path's plan covers at most Sk keys (min(Sk, window + Sq - 1) windowed)
+// from the visible range's start; the wgmma path takes no `len` (-3).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype,
     int B, int Sq, int Sk, int H, int KV, int hd,
@@ -832,11 +860,12 @@ extern "C" int flash_attention_fwd(
     long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh,
     int causal, int window, float scale, int path, int k_begin, int k_end,
-    int chunk, int splits, void* part, void* stream) {
+    int chunk, int splits, void* part, const void* len, void* stream) {
   Params p{q, k, v, o, B, Sq, Sk, H, KV,
            q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
            o_sb, o_ss, o_sh, causal, window, scale,
-           k_begin, k_end, chunk, splits, static_cast<float*>(part)};
+           k_begin, k_end, chunk, splits, static_cast<float*>(part),
+           static_cast<const int*>(len)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) return dispatch<__nv_bfloat16>(p, hd, path, st);
   if (dtype == 0) return dispatch<float>(p, hd, path, st);

@@ -11,7 +11,10 @@ or raises; nothing falls back.  Any other device raises.
 The kernel has three paths (``csrc/flash_attention.cu``); ``choose_path``
 picks one by dtype, packed rows (Sq * H/KV) and alignment, and
 ``split_plan`` cuts the keys of the split-KV path into ranges.  Both are
-pure functions of the shapes, tested without a card.
+pure functions of the shapes, tested without a card.  A decode call may
+give its key count on the device (``length``): the plan is then cut for
+the padded cache (``plan_keys``) and the kernel finds the visible range
+from the count, so a CUDA graph of the call serves every position.
 """
 from __future__ import annotations
 
@@ -33,7 +36,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
              + [ctypes.c_longlong] * 12
              + [ctypes.c_int, ctypes.c_int, ctypes.c_float]
-             + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
+             + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3)
 
 #: the kernel's paths, with their codes in the C interface
 PATHS = {"simt": 0, "wgmma": 1, "split_kv": 2}
@@ -95,6 +98,15 @@ def split_plan(Sq: int, Sk: int, causal: bool, window: int, n_bkv: int,
     return SplitPlan(k_begin, k_end, chunk, -(-n // chunk))
 
 
+def plan_keys(Sq: int, L: int, window: int) -> int:
+    """The most keys a call with its key count on the device can see in a
+    padded cache of L slots: all L, or the window's (plus the Sq - 1 rows
+    before the last) for a windowed layer.  The split plan is cut for this
+    many, from the visible range's start, which the kernel finds from the
+    count."""
+    return min(L, window + Sq - 1) if window > 0 else L
+
+
 def aligned16(*ts) -> bool:
     """Every pointer and every stride but the last on 16 bytes."""
     return all(t.data_ptr() % 16 == 0
@@ -130,7 +142,14 @@ def _check_shapes(q, k, v):
         raise ValueError(f"{H} query heads do not group over {KV} KV heads")
 
 
-def _launch(q, k, v, causal, window):
+def _check_length(length, q):
+    if not (isinstance(length, torch.Tensor) and length.dim() == 0
+            and length.dtype == torch.int32 and length.device == q.device):
+        raise ValueError("flash_attention: length must be a 0-d int32 "
+                         f"tensor on {q.device}; got {length!r}")
+
+
+def _launch(q, k, v, causal, window, length=None):
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     if not (k.is_cuda and v.is_cuda and k.device == q.device == v.device):
@@ -162,10 +181,17 @@ def _launch(q, k, v, causal, window):
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     G = H // KV
     path = choose_path(q.dtype, Sq, G, aligned16(q, k, v))
+    if length is not None and path == "wgmma":
+        raise ValueError(f"flash_attention: a device key count takes at "
+                         f"most {SPLIT_MAX_ROWS} packed rows (decode); got "
+                         f"Sq {Sq} x G {G}")
     plan, part = SplitPlan(0, Sk, Sk, 1), None
     if path == "split_kv":
-        plan = split_plan(Sq, Sk, causal, window, B * KV,
-                          _n_sm(q.device.index or 0))
+        n_sm = _n_sm(q.device.index or 0)
+        plan = (split_plan(Sq, Sk, causal, window, B * KV, n_sm)
+                if length is None else   # the grid for any count <= Sk
+                split_plan(Sq, plan_keys(Sq, Sk, window), False, 0, B * KV,
+                           n_sm))
         if plan.splits > 1:   # (acc[hd], m, l) per split and row
             part = torch.empty(B * KV * plan.splits * Sq * G * (hd + 2),
                                dtype=torch.float32, device=q.device)
@@ -178,7 +204,8 @@ def _launch(q, k, v, causal, window):
                  *out.stride()[:3], int(causal), int(window),
                  1.0 / math.sqrt(hd), PATHS[path], plan.k_begin,
                  plan.k_end, plan.chunk, plan.splits,
-                 None if part is None else part.data_ptr(), stream)
+                 None if part is None else part.data_ptr(),
+                 None if length is None else length.data_ptr(), stream)
     if err < 0:
         raise ValueError(f"flash_attention: the kernel refused its "
                          f"arguments (code {err})")
@@ -188,13 +215,22 @@ def _launch(q, k, v, causal, window):
     return out
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
-    """q: (B, Sq, H, hd); k/v: (B, Sk, KV, hd) -> (B, Sq, H, hd)."""
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    length=None):
+    """q: (B, Sq, H, hd); k/v: (B, Sk, KV, hd) -> (B, Sq, H, hd).
+
+    ``length``, a 0-d int32 tensor on q's device, makes the keys the first
+    ``length`` of the Sk slots (a padded decode cache), read by the kernel
+    from the device: nothing waits for it, and one CUDA graph of the call
+    serves every length.  At most ``SPLIT_MAX_ROWS`` packed rows."""
     _check_shapes(q, k, v)
+    if length is not None:
+        _check_length(length, q)
     if q.is_cuda:
-        return _launch(q, k, v, causal, window)
+        return _launch(q, k, v, causal, window, length)
     if q.device.type == "cpu":
-        return reference_attention(q, k, v, causal=causal, window=window)
+        return reference_attention(q, k, v, causal=causal, window=window,
+                                   length=length)
     raise ValueError(f"flash_attention: no path for device {q.device}")
 
 

@@ -18,9 +18,12 @@ from repro_torch.kernels.masked_grad_agg import masked_grad_agg
 from repro_torch.kernels.mlstm_chunk import mlstm_chunk
 
 
-def attention(q, k, v, *, causal=True, window=0):
-    """q: (B, Sq, H, hd); k/v: (B, Sk, KV, hd); aligned-suffix positions."""
-    return flash_attention(q, k, v, causal=causal, window=window)
+def attention(q, k, v, *, causal=True, window=0, length=None):
+    """q: (B, Sq, H, hd); k/v: (B, Sk, KV, hd); aligned-suffix positions.
+    ``length``: a 0-d int32 tensor on q's device, the keys' count in a
+    padded cache, read on the device (decode)."""
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           length=length)
 
 
 def mlstm(q, k, v, g, i, *, normalize=True, scale=None):

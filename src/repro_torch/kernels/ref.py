@@ -13,12 +13,15 @@ import torch
 NEG_INF = -1e30
 
 
-def reference_attention(q, k, v, *, causal=True, window=0):
+def reference_attention(q, k, v, *, causal=True, window=0, length=None):
     """Dense attention, the contract of ``flash_attention``.
 
     q: (B, Sq, H, hd); k/v: (B, Sk, KV, hd).  Query head h reads KV head
     h // (H // KV).  Query row i sits at global position i + Sk - Sq
     (aligned suffixes).  Statistics in f32; output in ``q.dtype``.
+    ``length`` (a 0-d integer tensor) keeps the keys below it visible and
+    puts row i at i + length - Sq, over all Sk slots, as JAX's
+    ``_decode_block`` masks a padded cache by ``kpos <= pos``.
     """
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
@@ -26,9 +29,12 @@ def reference_attention(q, k, v, *, causal=True, window=0):
     qg = q.reshape(B, Sq, KV, G, hd).float()
     s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float())
     s = s / math.sqrt(hd)
-    qpos = torch.arange(Sq, device=q.device) + (Sk - Sq)
     kpos = torch.arange(Sk, device=q.device)
+    n = Sk if length is None else length.to(kpos.dtype)
+    qpos = torch.arange(Sq, device=q.device) + (n - Sq)
     mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if length is not None:
+        mask &= kpos[None, :] < n
     if causal:
         mask &= kpos[None, :] <= qpos[:, None]
     if window > 0:

@@ -84,29 +84,46 @@ def attention(q, k, v, *, causal=True, window=0, softcap=0.0):
     return ops.attention(q, k, v, causal=causal, window=window)
 
 
-def attn_decode(q, k_new, v_new, cache_k, cache_v, pos: int, *, window=0,
+def decode_position(pos, device):
+    """``pos`` as the decode step takes it: a 0-d int64 tensor on
+    ``device`` (a host int is turned into one)."""
+    if isinstance(pos, torch.Tensor):
+        if pos.dim() != 0 or pos.dtype != torch.int64 or pos.device != device:
+            raise ValueError(f"pos must be a 0-d int64 tensor on {device}; "
+                             f"got {pos.dtype} {tuple(pos.shape)} on "
+                             f"{pos.device}")
+        return pos
+    return torch.tensor(int(pos), dtype=torch.int64, device=device)
+
+
+def attn_decode(q, k_new, v_new, cache_k, cache_v, pos, *, window=0,
                 softcap=0.0):
     """One-token decode.
 
     q/k_new/v_new: (B, 1, {H|KV}, hd); cache_{k,v}: (B, L, KV, hd).
-    pos: host int, the number of tokens already in the cache; the new token
-    is written at index ``pos`` and attends over [0, pos].
+    pos: a 0-d int64 tensor on the caches' device (or a host int), the
+    number of tokens already in the cache; the new token is written at
+    index ``pos`` and attends over [0, pos] of the whole padded cache,
+    masked by ``length = pos + 1`` read on the device (JAX's traced
+    ``pos`` over ``kpos = arange(L)``), so nothing here waits for the
+    card and a CUDA graph of the step serves every position.
     Returns (y (B,1,H,hd), cache_k, cache_v).
 
     Unlike JAX's ``dynamic_update_slice``, the new k/v are written into the
     cache tensors IN PLACE: the caches passed in are the caches returned.
     """
-    cache_k[:, pos] = k_new[:, 0]
-    cache_v[:, pos] = v_new[:, 0]
-    ck, cv = cache_k[:, :pos + 1], cache_v[:, :pos + 1]
+    pos = decode_position(pos, cache_k.device)
+    idx = pos.reshape(1)
+    cache_k.index_copy_(1, idx, k_new)
+    cache_v.index_copy_(1, idx, v_new)
     if softcap:
         B = q.shape[0]
-        qpos = torch.full((B, 1), pos, device=q.device)
-        kpos = torch.arange(pos + 1, device=q.device)
-        y = attn_core(q, ck, cv, qpos, kpos, causal=True, window=window,
-                      softcap=softcap)
+        kpos = torch.arange(cache_k.shape[1], device=q.device)
+        y = attn_core(q, cache_k, cache_v, pos.expand(B, 1), kpos,
+                      causal=True, window=window, softcap=softcap)
     else:
-        # Sq = 1 over Sk = pos + 1 keys: the aligned-suffix rule puts the
-        # query at position pos
-        y = ops.attention(q, ck, cv, causal=True, window=window)
+        # Sq = 1 over the first ``length`` keys: the aligned-suffix rule
+        # puts the query at position pos
+        y = ops.attention(q, cache_k, cache_v, causal=True, window=window,
+                          length=(pos + 1).to(torch.int32))
     return y, cache_k, cache_v

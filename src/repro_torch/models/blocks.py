@@ -14,9 +14,10 @@ cache')`` alone.
   * decode:  cache in   -> updated cache
 
 The caches follow JAX's layout: ``{"attn": {"k", "v"}}`` for attention
-(written in place at ``ctx.pos``), ``{"state": ScanState, "conv": tail}``
-for the mLSTM, ``{"state": (c, n, h, m)}`` for the sLSTM, ``{"attn":
-{"k", "v"}, "mamba": {"state": ScanState, "conv": tail}}`` for the hybrid
+(written in place at the device index ``ctx.pos``), ``{"state":
+ScanState, "conv": tail}`` for the mLSTM, ``{"state": (c, n, h, m)}``
+for the sLSTM, ``{"attn": {"k", "v"}, "mamba": {"state": ScanState,
+"conv": tail}}`` for the hybrid
 and ``{"attn": {"k", "v"}, "cross": {"ck", "cv"}}`` for whisper's decoder
 (the encoder output's keys and values, written once by prefill and read
 whole by every decode step).  The encoder's ``enc`` blocks run in train
@@ -25,7 +26,7 @@ mode only, non-causally.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, NamedTuple, Optional
+from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -48,7 +49,9 @@ class LayerSpec:
 class Ctx(NamedTuple):
     mode: str                      # train | prefill | decode
     positions: Any                 # (B, S) or (3, B, S) int
-    pos: Optional[int] = None      # decode: host int cache write position
+    # decode: the cache write position, a 0-d int64 tensor on the
+    # caches' device
+    pos: Any = None
     encoder_out: Any = None        # whisper cross-attention source (B,Se,D)
 
 

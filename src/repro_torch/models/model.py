@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
+from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models.blocks import (Ctx, LayerSpec, block_forward,
@@ -265,6 +266,7 @@ def check_positions(positions):
     if isinstance(positions, torch.Tensor):
         if positions.device.type != "cpu":
             return
+        # reprolint: disable=host-sync-in-hot-path -- only a CPU tensor gets here (a card tensor returns above): host data, no transfer
         positions = positions.numpy()
     pos = np.asarray(positions)
     if pos.ndim == 3:
@@ -303,7 +305,10 @@ def forward(cfg, params, batch, mode: str = "train", caches=None,
     rule), where JAX masks by position: so train and prefill take the
     positions 0..S-1 on every row (stream 0 of M-RoPE's) and raise
     ``ValueError`` for others given on the host (:func:`check_positions`).
-    Decode has S == 1, a host int ``pos`` and ``caches``.
+    Decode has S == 1, ``pos`` (a 0-d int64 tensor on the caches'
+    device, or a host int, which becomes one) and ``caches``: nothing in a
+    decode step reads a value off the card, so a CUDA graph of it serves
+    every position.
 
     Returns (logits, caches, aux): train gives the full (B, S, V) logits
     and no caches; prefill gives the last position's logits (B, 1, V) and
@@ -326,6 +331,8 @@ def forward(cfg, params, batch, mode: str = "train", caches=None,
         x = x + params["dec_pos_table"][qpos]
         if mode != "decode":
             encoder_out = _run_encoder(cfg, params, batch["frames"])
+    if mode == "decode":
+        pos = A.decode_position(pos, x.device)
     ctx = Ctx(mode=mode, positions=positions, pos=pos,
               encoder_out=encoder_out)
     new_caches = []
@@ -386,13 +393,16 @@ def prefill(cfg, params, batch):
     return logits[:, -1], caches
 
 
-def decode_step(cfg, params, tokens, pos: int, caches, positions=None):
-    """tokens: (B, 1); pos: host int cache length so far.  The caches are
-    updated in place and returned."""
+def decode_step(cfg, params, tokens, pos, caches, positions=None):
+    """tokens: (B, 1); pos: the cache length so far, a 0-d int64 tensor
+    on the tokens' device (JAX's traced ``jnp.int32(S + t)``) or a host
+    int.  The positions (B, 1) are built from it on the device.  The KV
+    caches are written in place; the other leaves (SSM states, conv
+    tails) come back as new tensors, as JAX returns them."""
     B = tokens.shape[0]
+    pos = A.decode_position(pos, tokens.device)
     if positions is None:
-        positions = torch.full((B, 1), pos, dtype=torch.int64,
-                               device=tokens.device)
+        positions = pos.expand(B, 1)
     batch = {"tokens": tokens, "positions": positions}
     logits, caches, _ = forward(cfg, params, batch, mode="decode",
                                 caches=caches, pos=pos)

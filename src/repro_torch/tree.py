@@ -27,7 +27,10 @@ def unflatten(like, flat):
             out = {k: build(node[k]) for k in sorted(node)}
             return {k: out[k] for k in node}   # keep the caller's key order
         if isinstance(node, (list, tuple)):
-            return type(node)(build(t) for t in node)
+            items = [build(t) for t in node]
+            if hasattr(node, "_fields"):   # a NamedTuple (ScanState)
+                return type(node)(*items)
+            return type(node)(items)
         return next(it)
 
     out = build(like)
