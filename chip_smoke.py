@@ -76,7 +76,10 @@ Phases, one JSON line each; any failure exits non-zero:
                  all-zero masks, W at the kernel's worker limit (and one
                  more, which must raise), plus the full-width
                  (8, 494,032,768) f32 buffer; kernel / plain / library
-                 ((mask @ g) / c) / bound ms
+                 ((mask @ g) / c) / bound ms.  Every grid case also in the
+                 sum mode (mean=False: the masked sum, undivided), and the
+                 (8, 494,032,768) buffer in it: kernel / plain / library
+                 (mask @ g) / bound ms (the mean's bytes)
   fused_adam     the kernel against reference_adam at steps 1 and 100, wd 0
                  and 0.01, bf16 and f32 p (f32 m/v), on every distinct layer
                  shape plus ragged and unaligned leaves; then one checked
@@ -85,11 +88,25 @@ Phases, one JSON line each; any failure exits non-zero:
   train          full-width qwen2-0.5b cutoff SGD (bf16, seeded init):
                  SyntheticTokens(seq 128, batch 16), 8 workers,
                  FirstKController(8, backup=2), ClusterSim(8, 2 nodes, seed
-                 7), adamw(cosine_schedule(3e-4, 2, 20), fused=True), 5
+                 7), adamw(cosine_schedule(3e-4, 2, 20), fused=True), 3
                  psum steps then 1 weights step; asserts the launch counts
                  of every step and finite losses, and counts the optimizer's
                  leaf-table uploads per step
   train_profile  the device's busy share of one more psum step
+  train_dp       train's setup, seeds and mask schedule through the
+                 data-parallel path: an NCCL process group of world size 1
+                 (the collectives run), a ("data",) mesh, a pure-dp layout
+                 (launch.mesh, dist.sharding), W 8 on the one rank; the 4
+                 psum steps (masked_grad_agg's sum mode, one all-reduce of
+                 the (N + 1,) f32 sum, the division), then the weights step
+                 (one all-reduce of the bf16 gradient); launch and
+                 collective counts every step (the cutoff broadcast from
+                 rank 0); the parameters after each path bit-equal to
+                 train's; the decision's broadcast under sync debug mode
+                 "error" on rank 0; the all-reduces' and the broadcast's ms
+                 beside the step's, and the weights gradient's all-reduce
+                 made one leaf at a time (the design the flat buffer
+                 replaced)
   train_parity   the same psum step at full width and 2 layers, f32, W = 4,
                  2 steps, on the CPU (plain versions) and on the card
                  (kernels): loss, aggregated gradient, m, v and p
@@ -299,12 +316,12 @@ Phases, one JSON line each; any failure exits non-zero:
                  windowed layer), f32, 2 x 1100-token prompts: prefill
                  logits within 1e-4 and equal greedy ids, CPU against the
                  card
-  train_hymba    hymba-1.5b at depth 24 (1,257,478,600 parameters, bf16)
+  train_hymba    hymba-1.5b at depth 16 (872,454,000 parameters, bf16)
                  under train_dmm's DMM controller: seq 128 x batch 16, W
                  8, psum, fused AdamW; 2 steps, then a replay from the
                  same state that must match them bit for bit (losses,
                  cutoffs, parameters) and goes on to 3 steps, each
-                 asserting its launches (flash and mlstm_chunk 24 x 8,
+                 asserting its launches (flash and mlstm_chunk 16 x 8,
                  masked_grad_agg 1, fused_adam 1) and a finite loss; wall
                  ms, peak memory; the device's busy share of one more
                  step; both kernels timed on the trainer's own buffer
@@ -372,6 +389,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import itertools
 import json
 import math
 import re
@@ -536,6 +554,7 @@ PORT_KERNELS = ("flash_fwd", "flash_fwd_tc", "flash_split_tc",
                 "flash_combine", "masked_agg", "fused_adam", "mlstm_fwd",
                 "mlstm_state_tc", "mlstm_out_tc")
 AGG_HEADLINE = "full_w8_f32"      # the train step's (8, N) buffer
+AGG_SUM_HEADLINE = "full_w8_f32_sum"   # the same in sum mode (train_dp)
 ADAM_HEADLINE = "full_bfloat16"   # the train step's leaves
 
 
@@ -1376,16 +1395,21 @@ def _agg_masks(torch, W, gen):
             "zero": torch.zeros(W, device="cuda")}
 
 
-def _agg_times(torch, side, g, mask, reps):
+def _agg_times(torch, side, g, mask, reps, mean=True):
+    """Kernel / plain / library / bound ms of the mean (or, ``mean=False``,
+    the sum mode: the library call ``mask @ g`` alone).  Both modes read
+    and write the same bytes, so they share a bound."""
     from repro_torch.kernels.masked_grad_agg import masked_grad_agg
     from repro_torch.kernels.ref import reference_masked_agg
 
     W, N = g.shape
     m2 = mask.reshape(1, W).to(g.dtype)
     c = torch.clamp(mask.sum(), min=1.0)
-    fns = {"ms": lambda: masked_grad_agg(g, mask),
-           "plain_ms": lambda: reference_masked_agg(g, mask.reshape(-1, 1)),
-           "library_ms": lambda: (m2 @ g) / c}
+    fns = {"ms": lambda: masked_grad_agg(g, mask, mean=mean),
+           "plain_ms": lambda: reference_masked_agg(
+               g, mask.reshape(-1, 1), mean=mean),
+           "library_ms": ((lambda: (m2 @ g) / c) if mean
+                          else (lambda: m2 @ g))}
     times = {k: device_ms(torch, f, side, reps=reps) for k, f in fns.items()}
     elt = g.element_size()
     nbytes = W * N * elt + N * elt + 4 * W
@@ -1403,27 +1427,34 @@ def phase_masked_agg(torch):
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     side = torch.cuda.Stream()
-    worst, cases = 0.0, 0
+    worst, worst_sum, cases = 0.0, 0.0, 0
     for dtname in ("float32", "bfloat16"):
         dt = getattr(torch, dtname)
         for W in AGG_CASES_W:
             for N in AGG_CASES_N:
                 g = torch.randn(W, N, generator=gen, device="cuda").to(dt)
-                for mname, mask in _agg_masks(torch, W, gen).items():
-                    out = masked_grad_agg(g, mask)
-                    want = reference_masked_agg(g, mask.reshape(-1, 1))[0]
+                for (mname, mask), mean in itertools.product(
+                        _agg_masks(torch, W, gen).items(), (True, False)):
+                    mode = "mean" if mean else "sum"
+                    out = masked_grad_agg(g, mask, mean=mean)
+                    want = reference_masked_agg(g, mask.reshape(-1, 1),
+                                                mean=mean)[0]
                     check(out.shape == (N,) and out.dtype == dt,
-                          f"masked_grad_agg {W}x{N} {dtname}: output "
-                          f"{tuple(out.shape)} {out.dtype}")
+                          f"masked_grad_agg {mode} {W}x{N} {dtname}: "
+                          f"output {tuple(out.shape)} {out.dtype}")
                     tol = AGG_TOL[dtname]
                     ex = _allclose_excess(torch, out, want, tol, tol).item()
-                    check(ex <= tol, f"masked_grad_agg {W}x{N} {dtname} "
-                          f"{mname} mask: off by {ex} beyond rtol > {tol}")
+                    check(ex <= tol, f"masked_grad_agg {mode} {W}x{N} "
+                          f"{dtname} {mname} mask: off by {ex} beyond rtol "
+                          f"> {tol}")
                     if mname == "zero":
                         check(bool((out == 0).all()), "masked_grad_agg: an "
                               "all-zero mask must give exact zeros")
                     err = (out.float() - want.float()).abs().max().item()
-                    worst = max(worst, err)
+                    if mean:
+                        worst = max(worst, err)
+                    else:
+                        worst_sum = max(worst_sum, err)
                     cases += 1
                 del g
     # the worker limit: the kernel takes MAX_WORKERS rows and refuses more
@@ -1445,7 +1476,7 @@ def phase_masked_agg(torch):
         raise RuntimeError(f"masked_grad_agg took {MAX_WORKERS + 1} workers")
     del g, out, want
     emit("masked_grad_agg", checked_cases=cases, max_abs_err=worst,
-         max_workers=MAX_WORKERS)
+         sum_max_abs_err=worst_sum, max_workers=MAX_WORKERS)
 
     results = {}
     timed = [("w158_n2^20_f32", 158, 1 << 20, "float32", 20),
@@ -1468,9 +1499,26 @@ def phase_masked_agg(torch):
                **_agg_times(torch, side, g, mask, reps)}
         results[name] = rec
         emit("masked_grad_agg", **rec)
+        if name == AGG_HEADLINE:
+            # the sum mode, a data-parallel rank's share of the combine
+            out = masked_grad_agg(g, mask, mean=False)
+            want = reference_masked_agg(g, mask.reshape(-1, 1),
+                                        mean=False)[0]
+            err = (out.float() - want.float()).abs().max().item()
+            ex = _allclose_excess(torch, out, want, tol, tol).item()
+            check(ex <= tol, f"masked_grad_agg sum {name}: off by {ex} > "
+                  f"{tol}")
+            del out, want
+            torch.cuda.empty_cache()
+            rec = {"case": name, "mode": "sum", "W": W, "N": N,
+                   "dtype": dtname, "max_abs_err": err, "tol": tol,
+                   **_agg_times(torch, side, g, mask, reps, mean=False)}
+            results[AGG_SUM_HEADLINE] = rec
+            emit("masked_grad_agg", **rec)
+            worst_sum = max(worst_sum, err)
         del g
         torch.cuda.empty_cache()
-    return results, worst
+    return results, worst, worst_sum
 
 
 def _adam_inputs(torch, shapes, p_dt, gen, offset=()):
@@ -1656,7 +1704,7 @@ def phase_train(torch, cfg, params_f32):
     from repro_torch.kernels import build
     from repro_torch.launch.train import make_train_step
 
-    W, S, B, n_steps = 8, 128, 16, 5
+    W, S, B, n_steps = 8, 128, 16, TRAIN_STEPS
     t_setup = time.perf_counter()
     params = cast(params_f32, "cuda", torch.bfloat16)
     tr, opt = _train_setup(torch, cfg, params, n_workers=W, seq=S, batch=B,
@@ -1664,7 +1712,7 @@ def phase_train(torch, cfg, params_f32):
                            timer=ClusterSim(n_workers=W, n_nodes=2, seed=7))
     want = {"flash_attention": cfg.n_layers * W, "masked_grad_agg": 1,
             "fused_adam": 1}
-    totals, clocks = {}, []
+    totals, clocks, walls_ms = {}, [], []
     torch.cuda.synchronize()
     seconds = {"setup": time.perf_counter() - t_setup}
     t_steps = time.perf_counter()
@@ -1684,6 +1732,7 @@ def phase_train(torch, cfg, params_f32):
         check(bool(np.isfinite(rec["loss"])),
               f"step {rec['step']}: loss {rec['loss']}")
         clocks.append(rec["clock"])
+        walls_ms.append(wall * 1e3)
         emit("train", mask_agg="psum", step=rec["step"], wall_ms=wall * 1e3,
              tokens_per_s=B * S / wall, c=rec["c"], n=rec["n"],
              loss=rec["loss"], clock=rec["clock"], launches=launches,
@@ -1703,6 +1752,8 @@ def phase_train(torch, cfg, params_f32):
 
     prof = device_profile(torch, one_step)
     seconds["profile"] = time.perf_counter() - t_prof
+    # the parameters after every psum step, for train_dp
+    psum_params = [x.clone() for x in tree.leaves(tr.state["params"])]
     emit("train_profile", mask_agg="psum", wall_ms=wall[0],
          device_busy_share=prof["device_ms"] / wall[0],
          seconds=seconds["profile"], **prof)
@@ -1725,9 +1776,199 @@ def phase_train(torch, cfg, params_f32):
          launches=launches, leaves=len(tree.leaves(params)),
          psum_max_memory_allocated=peak,
          seconds=dict(seconds, weights_step=time.perf_counter() - t_weights))
+    final_params = tree.leaves(tr.state["params"])
     del tr, opt, params
     torch.cuda.empty_cache()
-    return totals, clocks
+    return totals, clocks, {"psum": psum_params, "final": final_params,
+                            "psum_wall_ms": float(np.median(walls_ms))}
+
+
+TRAIN_STEPS = 3   # train's psum steps before its profiled one
+COLLECTIVE_REPS = 10
+
+
+def phase_train_dp(torch, cfg, params_f32, ref):
+    """train's setup, seeds and schedule through the data-parallel path:
+    an NCCL process group of world size 1 (every collective still runs), a
+    ("data",) mesh and a pure data-parallel layout, W 8 on the one rank.
+    The psum steps (the kernel's sum mode, one all-reduce, the division),
+    then one weights step (one all-reduce of the bf16 gradient); each
+    step's launch counts, the cutoff broadcast from rank 0, and the
+    parameters against train's one-process run (``ref``), bit for bit:
+    at world size 1 every sum runs in the same order.  Then the
+    collectives alone: the all-reduces of both paths and the broadcast,
+    ms beside the step's, and the weights path's gradient all-reduced one
+    leaf at a time as a comparison."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed
+
+    t_setup = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        init_distributed("cuda", init_method=f"file://{d}/pg", rank=0,
+                         world_size=1)
+        try:
+            return _train_dp(torch, cfg, params_f32, ref, t_setup)
+        finally:
+            dist.destroy_process_group()
+
+
+def _train_dp(torch, cfg, params_f32, ref, t_setup):
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.cluster.simulator import ClusterSim
+    from repro_torch.core.controller import FirstKController
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import _dp, make_train_step
+
+    W, S, B = 8, 128, 16
+    mesh = make_mesh((1,), ("data",))
+    lay = shd.Layout(mesh=mesh, mode="train_fsdp", dp=("data",))
+    check(lay.dp_size == 1 and lay.n_shards == 1, f"train_dp layout {lay}")
+    params = cast(params_f32, "cuda", torch.bfloat16)
+    tr, opt = _train_setup(torch, cfg, params, n_workers=W, seq=S, batch=B,
+                           controller=FirstKController(W, backup=2),
+                           timer=ClusterSim(n_workers=W, n_nodes=2, seed=7))
+    torch.cuda.synchronize()
+    seconds = {"setup": time.perf_counter() - t_setup}
+    want = {"flash_attention": cfg.n_layers * W, "masked_grad_agg_sum": 1,
+            "fused_adam": 1}
+    totals, walls = {}, []
+    calls = {"all_reduce": 0, "broadcast": 0}
+    real = {k: getattr(dist, k) for k in calls}
+
+    def counting(name):
+        def call(*a, **k):
+            calls[name] += 1
+            return real[name](*a, **k)
+        return call
+
+    t_steps = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    for k in calls:
+        setattr(dist, k, counting(k))
+    try:
+        for _ in range(TRAIN_STEPS + 1):
+            build.LAUNCHES.clear()
+            before = dict(calls)
+            t0 = time.perf_counter()
+            with shd.use_layout(lay):
+                rec = tr.run(1)[-1]
+            wall = time.perf_counter() - t0
+            launches = dict(build.LAUNCHES)
+            for k, v in launches.items():
+                totals[k] = totals.get(k, 0) + v
+            check(launches == want, f"dp psum step {rec['step']}: launches "
+                  f"{launches}, want {want}")
+            # one broadcast (the decision), two all-reduces (the gradient
+            # with c; loss, ce and aux)
+            made = {k: calls[k] - before[k] for k in calls}
+            check(made == {"all_reduce": 2, "broadcast": 1},
+                  f"dp psum step {rec['step']}: collectives {made}")
+            check(bool(np.isfinite(rec["loss"])),
+                  f"dp step {rec['step']}: loss {rec['loss']}")
+            walls.append(wall * 1e3)
+            emit("train_dp", mask_agg="psum", step=rec["step"],
+                 wall_ms=wall * 1e3, c=rec["c"], n=rec["n"],
+                 loss=rec["loss"], clock=rec["clock"], launches=launches,
+                 collectives=made)
+        peak = torch.cuda.max_memory_allocated()
+        got = tree.leaves(tr.state["params"])
+        psum_equal = all(torch.equal(a, b) for a, b in zip(got, ref["psum"]))
+        psum_gap = max((a.float() - b.float()).abs().max().item()
+                       for a, b in zip(got, ref["psum"]))
+        seconds["psum_steps"] = time.perf_counter() - t_steps
+
+        t_w = time.perf_counter()
+        tr.step_fn = make_train_step(cfg, opt, mask_agg="weights")
+        tr.mask_agg = "weights"
+        build.LAUNCHES.clear()
+        before = dict(calls)
+        t0 = time.perf_counter()
+        with shd.use_layout(lay):
+            rec = tr.run(1)[-1]
+        w_wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        want_w = {"flash_attention": cfg.n_layers, "fused_adam": 1}
+        check(launches == want_w, f"dp weights step: launches {launches}, "
+              f"want {want_w}")
+        made = {k: calls[k] - before[k] for k in calls}
+        # one dtype (bf16) of gradients: one all-reduce, and the metrics'
+        check(made == {"all_reduce": 2, "broadcast": 1},
+              f"dp weights step: collectives {made}")
+    finally:
+        for k in calls:
+            setattr(dist, k, real[k])
+    # the decision's broadcast queues its upload and the collective and
+    # waits for neither on rank 0: no synchronizing call
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with shd.use_layout(lay):
+            tr._broadcast_decision(W, 6, np.full(W, 0.5, np.float32),
+                                   1.25, _dp(lay))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    got = tree.leaves(tr.state["params"])
+    final_equal = all(torch.equal(a, b) for a, b in zip(got, ref["final"]))
+    final_gap = max((a.float() - b.float()).abs().max().item()
+                    for a, b in zip(got, ref["final"]))
+    emit("train_dp", mask_agg="weights", step=rec["step"],
+         wall_ms=w_wall * 1e3, c=rec["c"], loss=rec["loss"],
+         launches=launches, collectives=made)
+    seconds["weights_step"] = time.perf_counter() - t_w
+    check(psum_equal, f"train_dp: the psum steps' parameters differ from "
+          f"train's (max |diff| {psum_gap})")
+    check(final_equal, f"train_dp: the weights step's parameters differ "
+          f"from train's (max |diff| {final_gap})")
+    n = sum(x.numel() for x in got)
+    shapes = [x.shape for x in got]
+    del tr, opt, params, got
+    torch.cuda.empty_cache()
+
+    # the collectives alone, as a step makes them (eager: host launch
+    # included), at world size 1
+    t_c = time.perf_counter()
+    total = torch.zeros(n + 1, dtype=torch.float32, device="cuda")
+    flat = torch.zeros(n, dtype=torch.bfloat16, device="cuda")
+    # one collective a leaf instead, the design the flat buffer replaced
+    leaves = [flat[:math.prod(sh)].view(sh) for sh in shapes]
+    vec = torch.zeros(W + 3, dtype=torch.float64, device="cuda")
+    group = mesh.group(("data",))
+    times = {
+        "all_reduce_psum_ms": eager_ms(
+            torch, lambda: dist.all_reduce(total, group=group),
+            reps=COLLECTIVE_REPS),
+        "all_reduce_weights_ms": eager_ms(
+            torch, lambda: dist.all_reduce(flat, group=group),
+            reps=COLLECTIVE_REPS),
+        "all_reduce_per_leaf_ms": eager_ms(
+            torch, lambda: [dist.all_reduce(x, group=group) for x in leaves],
+            reps=COLLECTIVE_REPS),
+        "broadcast_ms": eager_ms(
+            torch, lambda: dist.broadcast(vec, src=0, group=group),
+            reps=COLLECTIVE_REPS)}
+    del total, flat, leaves, vec
+    torch.cuda.empty_cache()
+    seconds["collectives"] = time.perf_counter() - t_c
+    step_ms = float(np.median(walls))
+    rec = {"world_size": dist.get_world_size(),
+           "backend": dist.get_backend(), "W": W, "params": n,
+           "psum_bit_equal": psum_equal, "psum_max_abs_diff": psum_gap,
+           "weights_bit_equal": final_equal,
+           "weights_max_abs_diff": final_gap,
+           "psum_wall_ms": step_ms, "train_psum_wall_ms": ref["psum_wall_ms"],
+           "weights_wall_ms": w_wall * 1e3,
+           "all_reduce_share_of_psum_step": times["all_reduce_psum_ms"]
+           / step_ms,
+           "max_memory_allocated": peak, "seconds": seconds, **times}
+    emit("train_dp", **rec)
+    return totals, rec
 
 
 def _scaled_err(torch, got, want):
@@ -5008,14 +5249,16 @@ def phase_train_moe_parity(torch, cfg_full):
 # ---------------------------------------------------------------------------
 # Hymba (hymba-1.5b): attention and Mamba heads in parallel in every layer,
 # served at full depth with a prompt past the 1024-token window, trained
-# at depth 24 under the DMM cutoff.
+# at depth 16 under the DMM cutoff.
 # ---------------------------------------------------------------------------
 
 # the reference's own tree (jax.eval_shape of repro.models.model.init_model):
 # ArchConfig.n_params() leaves out the Mamba sublayer (ROADMAP, known gaps)
 HYMBA_PARAMS = 1_642_503_200
-HYMBA_TRAIN_DEPTH = 24         # the (8, N) buffer at full depth: 52.6 GB
-HYMBA_TRAIN_PARAMS = 1_257_478_600
+# layers 0 and 15 global, the rest windowed: the (8, N) buffer at full
+# depth is 52.6 GB; depth 24 took 47-63 s of the script, 16 pays for train_dp
+HYMBA_TRAIN_DEPTH = 16
+HYMBA_TRAIN_PARAMS = 872_454_000
 HYMBA_STEPS = 3
 HYMBA_REPLAY = 2
 # depth 2 in f32: the CPU and the card sum in other orders; the xLSTM's
@@ -5131,14 +5374,14 @@ def phase_serve_hymba_parity(torch, cfg_full):
 
 
 def phase_train_hymba(torch, cfg_full, rm):
-    """hymba-1.5b at full width and depth 24 (layers 0 and 15 global, the
+    """hymba-1.5b at full width and depth 16 (layers 0 and 15 global, the
     rest windowed; bf16, weights drawn on the card) trained by the psum
     step under train_dmm's DMM controller over ClusterSim(8, 2 nodes, seed
     7): seq 128 x batch 16, W 8, fused AdamW.  A first run of HYMBA_REPLAY
     steps, then a second from the same state, controller, timer and data
     that must give the same losses, cutoffs and parameters bit for bit
     over those steps and goes on to HYMBA_STEPS, each asserting its
-    launches (flash and mlstm_chunk 24 x 8, masked_grad_agg 1, fused_adam
+    launches (flash and mlstm_chunk 16 x 8, masked_grad_agg 1, fused_adam
     1) and a finite loss.  The two runs share one step function: one
     (8, N) buffer.  Then the device's busy share of one more step."""
     from repro_torch import tree
@@ -5813,11 +6056,15 @@ def main() -> int:
     params_f32 = timed(sec, "init_weights", init_weights, torch, cfg)
     serve_launches = timed(sec, "serve", phase_serve, torch, cfg, params_f32)
     timed(sec, "serve_parity", phase_parity, torch, cfg, params_f32)
-    agg, agg_err = timed(sec, "masked_grad_agg", phase_masked_agg, torch)
+    agg, agg_err, agg_sum_err = timed(sec, "masked_grad_agg",
+                                      phase_masked_agg, torch)
     shapes = [tuple(x.shape) for x in tree.leaves(params_f32)]
     adam, adam_err = timed(sec, "fused_adam", phase_fused_adam, torch, shapes)
-    train_launches, firstk_clocks = timed(sec, "train", phase_train, torch,
-                                          cfg, params_f32)
+    train_launches, firstk_clocks, train_ref = timed(
+        sec, "train", phase_train, torch, cfg, params_f32)
+    dp_launches, dp_rec = timed(sec, "train_dp", phase_train_dp, torch, cfg,
+                                params_f32, train_ref)
+    del train_ref
     timed(sec, "train_parity", phase_train_parity, torch, cfg)
     timed(sec, "dmm", phase_dmm, torch)
     timed(sec, "ps", phase_ps, torch)
@@ -5887,7 +6134,8 @@ def main() -> int:
 
     def launches(name):
         by_path = {"serve": serve_launches.get(name, 0),
-                   "train_psum_5_steps": train_launches.get(name, 0),
+                   "train_psum_steps": train_launches.get(name, 0),
+                   "train_dp": dp_launches.get(name, 0),
                    "train_dmm": dmm_launches.get(name, 0),
                    "obs": obs_launches.get(name, 0),
                    "train_policies": policy_launches.get(name, 0),
@@ -5968,6 +6216,22 @@ def main() -> int:
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"], "case": case, **extra})
+    # the sum mode: a data-parallel rank's share of the combine (train_dp)
+    sum_head = agg[AGG_SUM_HEADLINE]
+    total, by_path = launches("masked_grad_agg_sum")
+    rows.insert(2, {
+        "name": "masked_grad_agg_sum", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/masked_grad_agg.cu",
+        "replaces": "src/repro/kernels/masked_grad_agg.py:32",
+        "launches": total, "launches_by_path": by_path,
+        "max_abs_err": agg_sum_err, "ms": sum_head["ms"],
+        "plain_ms": sum_head["plain_ms"], "bound_ms": sum_head["bound_ms"],
+        "bound_by": sum_head["bound_by"],
+        "library_ms": sum_head["library_ms"], "case": AGG_SUM_HEADLINE,
+        "mode": "sum (mean=False: the masked sum, undivided)",
+        **{f"train_dp_{k}": dp_rec[k] for k in (
+            "all_reduce_psum_ms", "all_reduce_weights_ms", "broadcast_ms",
+            "psum_wall_ms", "all_reduce_share_of_psum_step")}})
     # the serve decode's call: the key count on the device (graph decode)
     dec = flash_len[FLASH_LEN_HEADLINE]
     rows[0].update({"decode_case": FLASH_LEN_HEADLINE,

@@ -7,7 +7,12 @@
 //     out[j] = (sum_w m_w * g[w, j]) / max(sum_w m_w, 1)
 // with products and sums in f32 and the output in the grads' dtype.  This is
 // the cutoff combine of paper Alg. 1 line 29 (a 0/1 bit array) and the
-// anytime combine (fractional contributions).
+// anytime combine (fractional contributions).  In sum mode (`mean` 0) the
+// kernel writes the masked sum `sum_w m_w * g[w, j]` undivided: a rank's
+// share of the data-parallel combine, which an all-reduce over the ranks
+// completes before the division by the global c
+// (repro_torch/core/aggregation.py `masked_psum_mean`).  Both modes read
+// and write the same bytes.
 //
 // What bounds it on the H100.  Bytes: each of the W*N inputs is read once
 // and each of the N outputs written once, against 2*W*N flops.  At the
@@ -82,8 +87,9 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p,
 }
 
 // VECTOR: every row start and the output are aligned for 4-wide access
-// (the wrapper checks the pointers and the pitch).
-template <typename T, bool VECTOR>
+// (the wrapper checks the pointers and the pitch).  MEAN: divide by c; else
+// write the masked sum.
+template <typename T, bool VECTOR, bool MEAN>
 __global__ void __launch_bounds__(THREADS)
 masked_agg(const T* __restrict__ g, const float* __restrict__ mask,
            T* __restrict__ out, int W, long long N, long long pitch) {
@@ -113,7 +119,7 @@ masked_agg(const T* __restrict__ g, const float* __restrict__ mask,
     }
     float y[VEC];
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) y[j] = __fdiv_rn(acc[j], c);
+    for (int j = 0; j < VEC; ++j) y[j] = MEAN ? __fdiv_rn(acc[j], c) : acc[j];
     store4(out + col, y);
     return;
   }
@@ -124,10 +130,11 @@ masked_agg(const T* __restrict__ g, const float* __restrict__ mask,
     for (int j = 0; j < n; ++j)
       acc[j] = __fadd_rn(acc[j], __fmul_rn(to_f32(row[j]), m));
   }
-  for (int j = 0; j < n; ++j) store(out + col + j, __fdiv_rn(acc[j], c));
+  for (int j = 0; j < n; ++j)
+    store(out + col + j, MEAN ? __fdiv_rn(acc[j], c) : acc[j]);
 }
 
-template <typename T>
+template <typename T, bool MEAN>
 int launch(const void* g, const float* mask, void* out, int W, long long N,
            long long pitch, int vector, cudaStream_t stream) {
   const long long threads = (N + VEC - 1) / VEC;
@@ -137,28 +144,40 @@ int launch(const void* g, const float* mask, void* out, int W, long long N,
   const T* gt = static_cast<const T*>(g);
   T* ot = static_cast<T*>(out);
   if (vector) {
-    masked_agg<T, true><<<static_cast<unsigned>(blocks), THREADS, smem,
-                          stream>>>(gt, mask, ot, W, N, pitch);
+    masked_agg<T, true, MEAN><<<static_cast<unsigned>(blocks), THREADS,
+                                smem, stream>>>(gt, mask, ot, W, N, pitch);
   } else {
-    masked_agg<T, false><<<static_cast<unsigned>(blocks), THREADS, smem,
-                           stream>>>(gt, mask, ot, W, N, pitch);
+    masked_agg<T, false, MEAN><<<static_cast<unsigned>(blocks), THREADS,
+                                 smem, stream>>>(gt, mask, ot, W, N, pitch);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_mode(const void* g, const float* mask, void* out, int W,
+                long long N, long long pitch, int vector, int mean,
+                cudaStream_t stream) {
+  if (mean) return launch<T, true>(g, mask, out, W, N, pitch, vector, stream);
+  return launch<T, false>(g, mask, out, W, N, pitch, vector, stream);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (grads and output alike).  pitch is the
 // distance between rows of g in elements; mask holds W float32 values.
+// mean: 1 divides by max(sum m, 1), 0 writes the masked sum.
 extern "C" int masked_grad_agg(const void* g, const void* mask, void* out,
                                int dtype, int W, long long N,
-                               long long pitch, int vector, void* stream) {
+                               long long pitch, int vector, int mean,
+                               void* stream) {
   if (W < 1 || W > MAX_WORKERS || N < 1 || pitch < N) return -1;
   const float* m = static_cast<const float*>(mask);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(g, m, out, W, N, pitch, vector, st);
+  if (dtype == 0)
+    return launch_mode<float>(g, m, out, W, N, pitch, vector, mean, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(g, m, out, W, N, pitch, vector, st);
+    return launch_mode<__nv_bfloat16>(g, m, out, W, N, pitch, vector, mean,
+                                      st);
   return -2;
 }
 

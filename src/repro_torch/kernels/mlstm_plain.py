@@ -21,8 +21,8 @@ carries ~1e-4 of rounding into every exponent, which puts the output
 outside 5e-4 of the sequential oracle (``ref.reference_mlstm``) where the
 normalizer cancels.  In f64 the differences keep f32 precision.  The JAX
 module also shards the sequence over the "model" axis under the
-``train_sp`` layout; that branch waits for the port's multi-GPU layer
-(ROADMAP A.15).
+``train_sp`` layout; that branch waits for the port's ``train_sp`` slice
+(ROADMAP A.15.3).
 
 It lives in the kernels layer because it is what the ``mlstm_chunk``
 wrapper runs on CPU tensors and what ``chip_smoke.py`` holds the kernel

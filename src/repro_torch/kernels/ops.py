@@ -45,12 +45,14 @@ def mlstm(q, k, v, g, i, *, normalize=True, scale=None):
 # ---------------------------------------------------------------------------
 
 
-def masked_aggregate(grads_stacked, mask):
+def masked_aggregate(grads_stacked, mask, *, mean: bool = True, out=None):
     """grads_stacked: (W, N); mask: (W,) -> (N,) cutoff-weighted mean, in
-    the grads' dtype.  Any N: nothing is padded."""
+    the grads' dtype (``mean=False``: the masked sum, a data-parallel
+    rank's share), written into ``out`` when given.  Any N: nothing is
+    padded."""
     mask = torch.as_tensor(mask, dtype=torch.float32).to(
         grads_stacked.device, non_blocking=True)
-    return masked_grad_agg(grads_stacked, mask)
+    return masked_grad_agg(grads_stacked, mask, mean=mean, out=out)
 
 
 class WorkerGrads:
@@ -80,10 +82,26 @@ class WorkerGrads:
         return [flat_row[a:b].view(s) for a, b, s in
                 zip(self.offsets[:-1], self.offsets[1:], self.shapes)]
 
-    def aggregate(self, mask):
-        out = masked_aggregate(self.buf, mask)
-        parts = [x.to(dt) for x, dt in zip(self._split(out), self.dtypes)]
+    @classmethod
+    def of_stacked(cls, grads):
+        """A buffer holding a tree whose leaves carry a leading worker dim
+        (W, ...), each written as f32 into its columns."""
+        flat = tree.leaves(grads)
+        W = flat[0].shape[0]
+        buf = cls(tree.map(lambda x: x[0], grads), W)
+        for i, x in enumerate(flat):
+            a, b = buf.offsets[i], buf.offsets[i + 1]
+            buf.buf[:, a:b].copy_(x.reshape(W, -1))
+        return buf
+
+    def unflatten(self, flat):
+        """An (N,) f32 result -> a tree like the parameters, each leaf cast
+        to its parameter's dtype (f32 leaves are views of ``flat``)."""
+        parts = [x.to(dt) for x, dt in zip(self._split(flat), self.dtypes)]
         return tree.unflatten(self.like, parts)
+
+    def aggregate(self, mask):
+        return self.unflatten(masked_aggregate(self.buf, mask))
 
 
 def masked_aggregate_tree(grads, mask):
@@ -94,13 +112,7 @@ def masked_aggregate_tree(grads, mask):
     back to its leaf's dtype: the JAX kernel path's rule
     (``repro.kernels.ops.masked_aggregate_tree``).
     """
-    flat = tree.leaves(grads)
-    W = flat[0].shape[0]
-    buf = WorkerGrads(tree.map(lambda x: x[0], grads), W)
-    for i, x in enumerate(flat):
-        a, b = buf.offsets[i], buf.offsets[i + 1]
-        buf.buf[:, a:b].copy_(x.reshape(W, -1))
-    return buf.aggregate(mask)
+    return WorkerGrads.of_stacked(grads).aggregate(mask)
 
 
 # ---------------------------------------------------------------------------

@@ -92,10 +92,13 @@ def reference_adam(p, g, m, v, scalars, *, b1=0.9, b2=0.999, eps=1e-8,
     return (p.float() - lr * up).to(p.dtype), m_new, v_new
 
 
-def reference_masked_agg(grads, mask):
+def reference_masked_agg(grads, mask, *, mean: bool = True):
     """grads (W, N), mask (W, 1) -> (1, N): the ``masked_grad_agg`` contract,
-    ``sum_w m_w g_w / max(sum m, 1)`` in f32, out in the grads' dtype."""
+    ``sum_w m_w g_w / max(sum m, 1)`` in f32, out in the grads' dtype;
+    ``mean=False`` gives the masked sum, undivided."""
     m = mask.float()
+    acc = torch.sum(grads.float() * m, dim=0, keepdim=True)
+    if not mean:
+        return acc.to(grads.dtype)
     c = torch.clamp(torch.sum(m), min=1.0)
-    return (torch.sum(grads.float() * m, dim=0, keepdim=True) / c
-            ).to(grads.dtype)
+    return (acc / c).to(grads.dtype)

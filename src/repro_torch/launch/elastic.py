@@ -21,7 +21,7 @@ device: the flash kernel is built for head_dims 64 and 128 (the JAX
 demo's tiny config has 16).  It runs on the card unless ``--device cpu``
 is given (no card and no ``--device``: an error).  The reference's
 ``--aot`` mode (compiles on degraded TPU meshes) waits for the mesh
-tooling, ROADMAP A.15.  ``--obs-dir`` writes the elastic trainer's
+tooling, ROADMAP A.15.5.  ``--obs-dir`` writes the elastic trainer's
 telemetry streams (``repro_torch.obs``).
 
   PYTHONPATH=src python -m repro_torch.launch.elastic [--steps N] [--device cpu]
@@ -45,6 +45,7 @@ from repro_torch.configs.base import bench_tiny_config
 from repro_torch.core.controller import ElasticController, FullSyncController
 from repro_torch.core.runtime_model.api import RuntimeModel
 from repro_torch.data.pipeline import SyntheticTokens
+from repro_torch.dist import sharding as shd
 from repro_torch.launch.train import Trainer, clock_to_loss, make_train_step
 from repro_torch.models import model as M
 from repro_torch.obs import ObsRun
@@ -154,7 +155,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--aot", action="store_true",
                     help="the reference's mesh-level compile dry-run "
-                         "(not ported: ROADMAP A.15)")
+                         "(not ported: ROADMAP A.15.5)")
     ap.add_argument("--steps", type=int, default=60)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
@@ -165,8 +166,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.aot:
         raise NotImplementedError(
-            "--aot compiles train_step on degraded TPU meshes; the mesh "
-            "tooling is not ported yet (ROADMAP A.15)")
+            "--aot compiles train_step on degraded TPU meshes; it waits "
+            f"for {shd.WAITS_FOR['aot']}")
     obs = ObsRun(args.obs_dir) if args.obs_dir else None
     run_churn_demo(steps=args.steps, seed=args.seed, device=args.device,
                    obs=obs)

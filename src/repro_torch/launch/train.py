@@ -1,6 +1,7 @@
 """Training entry points: the cutoff train step and the ``Trainer``.
 
-The port of ``repro.launch.train`` on one device.  ``make_train_step``
+The port of ``repro.launch.train``, on one device or across the
+data-parallel ranks of a layout (``dist.sharding``).  ``make_train_step``
 builds the step:
 
   * ``mask_agg="weights"`` (production, paper Alg. 1 / §4.3 variant):
@@ -17,6 +18,13 @@ builds the step:
     step;
   * int8 error-feedback compression of the aggregated gradient.
 
+Under a layout with dp axes (``dist.sharding.use_layout``) each rank
+computes the gradients of its own rows and workers: the weights path
+all-reduces the weighted-loss gradient (its normalizer the global one),
+the psum path combines the rank's (W/R, N) buffer in the kernel's sum
+mode, all-reduces it and divides (``core.aggregation.masked_psum_mean``).
+The reported loss, ce and aux are the global ones.
+
 The update is the optimizer's: with ``optim.adamw(..., fused=True)`` one
 Hopper ``fused_adam`` launch updates every parameter and both moments in
 place, the port's counterpart of the JAX step's donated state.
@@ -25,23 +33,27 @@ The ``Trainer`` is the host-side loop: controller -> bit array ->
 weights (or the bit array itself under ``mask_agg="psum"``), simulated
 (or measured) per-worker step times, the stale-gradient buffer, elastic
 resize, checkpoint/restart through ``checkpoint.store``, and telemetry
-through an optional ``obs.ObsRun``.
+through an optional ``obs.ObsRun``.  Across ranks only the lead rank holds
+the controller; its decision reaches the others by one broadcast a step.
 """
 from __future__ import annotations
 
 import contextlib
 import weakref
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import optim, tree
 from repro_torch.checkpoint import store
 from repro_torch.dist import collectives
+from repro_torch.dist import sharding as shd
 from repro_torch.kernels import ops
 from repro_torch.models import model as M
+from repro_torch.perf.knobs import knobs
 
 
 # ---------------------------------------------------------------------------
@@ -50,14 +62,28 @@ from repro_torch.models import model as M
 
 
 def make_loss_fn(cfg, aux_coef: float = 0.01):
-    """Dense cross-entropy summed over tokens and divided by
-    ``normalizer``, plus ``aux_coef`` times the auxiliary loss.  (The ring
-    and vocab-chunked CE of the JAX package come with the mesh, ROADMAP
-    A.15.)"""
+    """Cross-entropy summed over tokens and divided by ``normalizer``, plus
+    ``aux_coef`` times the auxiliary loss.  The CE is dense, or, where the
+    active knobs ask ``ce_chunk > 0`` (``perf.knobs``), the vocab-chunked
+    ``models.model.chunked_ce_sum`` from the final hidden state.
+    ``ce_impl="ring"`` is the vocab ring of ``train_sp`` (not ported yet:
+    it raises there); under every layout the port runs its sum is the
+    dense one, so the dense path computes it, as the reference's ring
+    does outside ``train_sp``."""
     def loss_fn(params, batch, normalizer):
-        logits, _, aux = M.forward(cfg, params, batch, mode="train")
-        loss = M._ce_sum_dense(logits, batch["labels"],
-                               batch.get("weights")) / normalizer
+        w = batch.get("weights")
+        k = knobs()
+        if k.ce_impl == "ring":
+            shd.require_data_parallel(shd.layout(), "ce_impl='ring'")
+        if k.ce_impl != "ring" and k.ce_chunk > 0:
+            x, _, aux = M.forward(cfg, params, batch, mode="train",
+                                  head=False)
+            ce_sum = M.chunked_ce_sum(cfg, params, x, batch["labels"], w,
+                                      k.ce_chunk)
+        else:
+            logits, _, aux = M.forward(cfg, params, batch, mode="train")
+            ce_sum = M._ce_sum_dense(logits, batch["labels"], w)
+        loss = ce_sum / normalizer
         return loss + aux_coef * aux, {"ce": loss, "aux": aux}
     return loss_fn
 
@@ -99,6 +125,26 @@ def _device_batch(batch, device):
         else:
             out[k] = torch.as_tensor(v).to(device, non_blocking=True)
     return out
+
+
+class _DP(NamedTuple):
+    """This process's place among the data-parallel ranks of a layout."""
+    mesh: Any
+    axes: tuple
+    size: int        # R, the dp ranks
+    index: int       # r, this rank's index along the dp axes
+    group: Any       # their process group
+
+
+def _dp(lay) -> Optional[_DP]:
+    """The dp ranks of a layout with dp axes, else None; a layout this
+    slice does not run raises by name."""
+    shd.require_data_parallel(lay, "the train step")
+    if lay.mesh is None or not lay.dp:
+        return None
+    mesh, axes = lay.mesh, tuple(lay.dp)
+    return _DP(mesh, axes, mesh.size(axes), mesh.index(axes),
+               mesh.group(axes))
 
 
 def _value_and_grad(loss_fn, params, batch, norm):
@@ -163,6 +209,20 @@ def make_train_step(cfg, optimizer: optim.Optimizer, *,
     compress_pod_grads=True: the aggregated gradient goes through int8
     error-feedback compression (``optim.error_feedback_compress``) before
     the update; the state carries the f32 residuals as ``"ef"``.
+
+    Under the active layout's dp axes (R ranks; rank r is this process's
+    index along them) the batch holds rank r's rows of the global batch,
+    rows ``[r B/R, (r + 1) B/R)``, with the GLOBAL cutoff vector:
+    ``weights`` (B,) or ``mask`` (W,), W/R workers a rank.  The weights
+    path takes the global normalizer from the whole vector and all-reduces
+    the gradient (through a flat buffer kept across steps, one collective
+    per dtype); the psum path writes its rank's W/R rows and combines them
+    through ``collectives.masked_grad_mean`` (sum mode, one all-reduce,
+    the division), the dropped mean of stale reuse likewise.  Every step also
+    all-reduces the local sums of loss, ce and aux once, so the metrics are
+    the one-process step's.  The weights path of an MoE arch raises there:
+    its auxiliary loss is a function of the whole batch's routing, which no
+    sum of the ranks' gives.
     """
     if mask_agg not in MASK_AGG_MODES:
         raise ValueError(f"unknown mask_agg {mask_agg!r} "
@@ -174,13 +234,16 @@ def make_train_step(cfg, optimizer: optim.Optimizer, *,
             "dropped worker's gradient to buffer)")
     loss_fn = make_loss_fn(cfg, aux_coef)
     buffers: Dict[Any, ops.WorkerGrads] = {}
+    flat_sums: Dict[Any, torch.Tensor] = {}   # (dtype, device) -> (n,)
     holders: Dict[int, int] = {}      # id(trainer) -> the width it steps at
 
-    def normalizer_of(batch):
+    def normalizer_of(batch, R=1):
+        """The loss normalizer; ``weights`` is the global vector, the
+        tokens R ranks' share of the batch."""
         w = batch.get("weights")
         B, S = batch["tokens"].shape
         if w is None:
-            return float(B * S)
+            return float(B * S * R)
         return torch.clamp(torch.sum(w.float()) * S, min=1e-6)
 
     def accumulate(params, micro, norm, weights, rows):
@@ -202,8 +265,7 @@ def make_train_step(cfg, optimizer: optim.Optimizer, *,
             aux = aux + metrics["aux"] * wj
         return loss, ce, aux
 
-    def grads_of(params, batch):
-        norm = normalizer_of(batch)
+    def grads_of(params, batch, norm):
         if grad_accum == 1:
             return _value_and_grad(loss_fn, params, batch, norm)
         rows = [torch.empty(p.shape, dtype=torch.float32, device=p.device)
@@ -250,17 +312,81 @@ def make_train_step(cfg, optimizer: optim.Optimizer, *,
 
         return tree.map(one, grads, stale_g)
 
-    def psum_grads_of(params, batch, stale_in=None):
+    def all_reduce_grads(grads, group):
+        """All-reduce (sum) the gradient leaves: one copy kernel writes
+        them into a flat buffer per dtype, kept across steps, one
+        collective sums it, and the sums come back as views of it.  (One
+        collective a leaf pays an eager NCCL call's host cost 290 times
+        at qwen2-0.5b: PERF.md §5.)"""
+        out = list(grads)
+        by_dtype: Dict[Any, list] = {}
+        for i, g in enumerate(grads):
+            by_dtype.setdefault(g.dtype, []).append(i)
+        for dtype, idx in by_dtype.items():
+            n = sum(grads[i].numel() for i in idx)
+            key = (dtype, grads[idx[0]].device)
+            flat = flat_sums.get(key)
+            if flat is None or flat.numel() != n:
+                flat = flat_sums[key] = torch.empty(n, dtype=dtype,
+                                                    device=key[1])
+            torch.cat([grads[i].reshape(-1) for i in idx], out=flat)
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+            off = 0
+            for i in idx:
+                k = grads[i].numel()
+                out[i] = flat[off:off + k].view(grads[i].shape)
+                off += k
+        return out
+
+    def metric_sums(sums, dp):
+        """The local sums of loss, ce and aux, all-reduced over the dp
+        ranks in one collective (as they are in one process)."""
+        if dp is None:
+            return sums
+        both = torch.stack(sums)
+        dist.all_reduce(both, op=dist.ReduceOp.SUM, group=dp.group)
+        return list(both.unbind())
+
+    def weights_grads_of(params, batch, dp):
+        if dp is None:
+            return grads_of(params, batch, normalizer_of(batch))
+        R, r = dp.size, dp.index
+        if cfg.family == "moe":
+            raise NotImplementedError(
+                "the weights path of an MoE arch across dp ranks: its aux "
+                "loss is the whole batch's routing, which no sum of the "
+                "ranks' gives; use mask_agg='psum' (each worker's own aux)")
+        b = batch["tokens"].shape[0]
+        w = batch.get("weights")
+        if w is not None and w.shape[0] != b * R:
+            raise ValueError(f"{R} dp ranks of {b} rows each take the "
+                             f"global ({b * R},) weights; got "
+                             f"{tuple(w.shape)}")
+        norm = normalizer_of(batch, R)
+        if w is not None:
+            batch = dict(batch, weights=w[r * b:(r + 1) * b])
+        loss, metrics, grads = grads_of(params, batch, norm)
+        loss, ce, aux = metric_sums([loss, metrics["ce"], metrics["aux"]],
+                                    dp)
+        return loss, {"ce": ce, "aux": aux}, all_reduce_grads(grads,
+                                                              dp.group)
+
+    def psum_grads_of(params, batch, dp, stale_in=None):
         mask = batch["mask"]
-        W = mask.shape[0]
         data = {k: v for k, v in batch.items() if k != "mask"}
         B, S = data["tokens"].shape
+        R, r = (1, 0) if dp is None else (dp.size, dp.index)
+        if mask.shape[0] % R:
+            raise ValueError(f"{mask.shape[0]} workers do not split over "
+                             f"{R} dp ranks")
+        W = mask.shape[0] // R           # this rank's workers
+        local = mask[r * W:(r + 1) * W]
         base_norm = np.float32((B // W) * S)
-        done = torch.round(mask * grad_accum).tolist()
+        done = torch.round(local * grad_accum).tolist()
         buf = worker_buffer(params, W)
         losses, ces, auxs = [], [], []
         for w, wbatch in enumerate(_split(data, W)):
-            f = np.float32(mask[w].item())
+            f = np.float32(local[w].item())
             norm = float(np.maximum(f, np.float32(1.0 / grad_accum))
                          * base_norm)
             # the completed-microbatch prefix: the first round(f G) count
@@ -275,6 +401,7 @@ def make_train_step(cfg, optimizer: optim.Optimizer, *,
             auxs.append(aux)
         agg = collectives.masked_grad_mean(buf, mask)
         mask_dev = mask.to(buf.buf.device, non_blocking=True)
+        local_dev = mask_dev[r * W:(r + 1) * W]
         c = torch.clamp(torch.sum(mask_dev), min=1.0)
         stale = None
         if stale_in is not None:
@@ -284,12 +411,10 @@ def make_train_step(cfg, optimizer: optim.Optimizer, *,
             stale = (collectives.masked_grad_mean(buf, 1.0 - mask),
                      torch.sum(1.0 - mask_dev))
             agg = fold_stale(agg, *stale_in, c)
-
-        def masked_mean(xs):
-            return torch.sum(torch.stack(xs) * mask_dev) / c
-
-        return masked_mean(losses), {"ce": masked_mean(ces),
-                                     "aux": masked_mean(auxs)}, agg, stale
+        loss, ce, aux = metric_sums(
+            [torch.sum(torch.stack(xs) * local_dev)
+             for xs in (losses, ces, auxs)], dp)
+        return loss / c, {"ce": ce / c, "aux": aux / c}, agg, stale
 
     def train_step(state, batch):
         params = state["params"]
@@ -302,11 +427,12 @@ def make_train_step(cfg, optimizer: optim.Optimizer, *,
                 "a stale_reuse step folds batch['stale_g'] with weight "
                 "batch['stale_w']: drive it with a StaleReuseController")
         batch = _device_batch(batch, tree.leaves(params)[0].device)
+        dp = _dp(shd.layout())
         if mask_agg == "psum":
-            loss, metrics, grads, stale = psum_grads_of(params, batch,
+            loss, metrics, grads, stale = psum_grads_of(params, batch, dp,
                                                         stale_in)
         else:
-            loss, metrics, flat = grads_of(params, batch)
+            loss, metrics, flat = weights_grads_of(params, batch, dp)
             grads = tree.unflatten(params, flat)
         if compress_pod_grads:
             grads, ef = optim.error_feedback_compress(grads,
@@ -398,6 +524,19 @@ class Trainer:
     drain, the records forwarded to ``obs.steps`` and ``obs.drain()``
     inside an ``obs.drain`` span.  Nothing of it fetches inside a step,
     and the run's losses and cutoffs are the bare run's, bit for bit.
+
+    Across data-parallel ranks (an active layout with dp axes, installed
+    by ``dist.sharding.use_layout``): every rank runs this loop and takes
+    its own rows of each global batch.  Only the lead rank (index 0 along
+    the dp axes) holds the ``controller`` and the ``timer`` (the others
+    pass None for both) and decides.  The (W,) vector the step aggregates
+    with (the bit array or the anytime contributions), the cutoff c, the
+    step's simulated time and the stale decay reach the other ranks by
+    ONE device broadcast a step, before the step (stream-ordered on NCCL:
+    no host sync on the lead rank; the others read it to pick their
+    workers' microbatches), and they use it as sent.  The lead rank
+    writes the checkpoints; every rank reads them.  :meth:`resize`
+    raises: a change of width is a change of mesh.
     """
     step_fn: Callable
     data: Any
@@ -420,9 +559,13 @@ class Trainer:
     _pending_metrics: list = field(default_factory=list, repr=False)
     # stale-reuse buffer: last step's (dropped-mean tree, count) on device
     _stale: Any = field(default=None, repr=False)
+    # a non-lead rank's stale decay, as the last broadcast carried it
+    _decay_seen: Any = field(default=None, repr=False)
 
     @property
     def _stale_decay(self):
+        if self.controller is None:
+            return self._decay_seen
         return getattr(self.controller, "stale_decay", None)
 
     def restore_or_init(self, init_state_fn):
@@ -444,8 +587,11 @@ class Trainer:
             try:
                 want = {"state": example,
                         "meta": {"step": 0, "clock": 0.0}}
-                stale = (self._stale_decay is not None and "stale"
-                         in store.groups(self.ckpt_dir, step))
+                # a non-lead rank holds no controller: it takes the stale
+                # buffer wherever the lead rank saved one
+                stale = ((self._stale_decay is not None
+                          or self.controller is None)
+                         and "stale" in store.groups(self.ckpt_dir, step))
                 if stale:
                     # restore makes new tensors shaped, typed and placed
                     # like the example's leaves: the params describe g
@@ -462,7 +608,8 @@ class Trainer:
                 if stale:
                     self._stale = (restored["stale"]["g"],
                                    restored["stale"]["count"])
-                self._restore_controller(step)
+                if self.controller is not None:
+                    self._restore_controller(step)
                 return self
             except store.CheckpointError as e:
                 print(f"checkpoint step {step} unusable ({e}); "
@@ -514,8 +661,13 @@ class Trainer:
         Re-checks global-batch divisibility for the new width, remaps the
         controller (``col_map`` as in the JAX ``remap_columns``), and
         records the new membership.  The psum step builds a buffer of the
-        new width at its next call.
+        new width at its next call.  Under a mesh layout it raises: the
+        ranks' share of the workers is the mesh's.
         """
+        if shd.layout().mesh is not None:
+            raise NotImplementedError(
+                "resizing a trainer across dp ranks changes the mesh; it "
+                f"waits for {shd.WAITS_FOR['aot']}")
         n_new = int(n_workers)
         B = getattr(self.data, "global_batch", None)
         if B is not None and B % n_new != 0:
@@ -592,10 +744,44 @@ class Trainer:
         # lazy on the device
         batch["stale_w"] = decay * stale_d
 
+    def _broadcast_decision(self, n, c, contrib, iter_time, dp):
+        """The lead rank's decision to every dp rank by ONE device
+        broadcast of f64 ``[contrib (n), c, iter_time, stale decay or
+        -1]``: the (n,) vector the step aggregates with (the bit array or
+        the anytime contributions), the cutoff and the step's simulated
+        time, each exact in f64.  The other ranks take it as sent."""
+        mesh, r = dp.mesh, dp.index
+        if r == 0:
+            decay = self._stale_decay
+            msg = np.concatenate([
+                contrib, [c, iter_time, -1.0 if decay is None else decay]
+            ]).astype(np.float64)
+            host = torch.from_numpy(msg)
+            if mesh.device.type == "cuda":
+                # from pinned memory the upload is queued, not waited on
+                host = host.pin_memory()
+            vec = host.to(mesh.device, non_blocking=True)
+        else:
+            vec = torch.empty(n + 3, dtype=torch.float64, device=mesh.device)
+        dist.broadcast(vec, src=mesh.global_rank(dp.axes, 0),
+                       group=dp.group)
+        if r == 0:
+            return c, contrib, iter_time
+        msg = vec.cpu().numpy()
+        self._decay_seen = None if msg[n + 2] < 0 else float(msg[n + 2])
+        return int(msg[n]), msg[:n].astype(np.float32), float(msg[n + 1])
+
     def run(self, n_steps: int, *, eval_fn=None, eval_every: int = 0,
             verbose: bool = False):
+        dp = _dp(shd.layout())
+        lead = dp is None or dp.index == 0
+        if not lead and (self.controller is not None
+                         or self.timer is not None):
+            raise ValueError(
+                "a dp rank other than the lead holds neither a controller "
+                "nor a timer: the lead's decision reaches it by broadcast")
         ckpt = (store.AsyncCheckpointer(self.ckpt_dir, self.keep)
-                if self.ckpt_dir else None)
+                if self.ckpt_dir and lead else None)
         hold = getattr(self.step_fn, "hold", None)
         tracer = self.obs.trace if self.obs is not None else None
 
@@ -610,46 +796,56 @@ class Trainer:
         for _ in range(n_steps):
             with span("trainer.step", step=self.step + 1, job=self.name):
                 self._step_once(ckpt, hold, span, ring, eval_fn,
-                                eval_every, verbose)
+                                eval_every, verbose, dp)
         self._drain_metrics()
         if ckpt:
             ckpt.wait()
         return self.history
 
     def _step_once(self, ckpt, hold, span, ring, eval_fn, eval_every,
-                   verbose):
+                   verbose, dp=None):
         """One step of :meth:`run`: cutoff, bit array, train step, observe,
         and the drains and checkpoints that fall on it."""
-        self._sync_membership()
+        lead = dp is None or dp.index == 0
+        if lead:
+            self._sync_membership()
         n = self.n_workers
         if hold is not None and self.mask_agg == "psum":
             hold(self, n)
-        with span("controller.predict_cutoff"):
-            c = int(self.controller.predict_cutoff())
-        c = min(c, n)
-        times = (self.timer.step() if self.timer is not None
-                 else np.ones(n))
-        # fastest c workers participate (the PS's bit array)
-        order = np.argsort(times)
-        mask = np.zeros(n, np.float32)
-        mask[order[:c]] = 1.0
-        iter_time = float(times[order[c - 1]])
-        # the controller sees the SAME worker set the aggregation used
-        finished = mask.astype(bool)
-
-        # anytime policy: stragglers contribute their completed
-        # fraction instead of a zeroed bit; finishers stay 1.0
-        contrib = mask
-        if hasattr(self.controller, "contribution"):
-            contrib = np.asarray(
-                self.controller.contribution(times, c), np.float32)
+        c = contrib = iter_time = None
+        if lead:
+            with span("controller.predict_cutoff"):
+                c = min(int(self.controller.predict_cutoff()), n)
+            times = (self.timer.step() if self.timer is not None
+                     else np.ones(n))
+            # fastest c workers participate (the PS's bit array)
+            order = np.argsort(times)
+            mask = np.zeros(n, np.float32)
+            mask[order[:c]] = 1.0
+            iter_time = float(times[order[c - 1]])
+            # the controller sees the SAME worker set the aggregation used
+            finished = mask.astype(bool)
+            # anytime policy: stragglers contribute their completed
+            # fraction instead of a zeroed bit; finishers stay 1.0
+            contrib = mask
+            if hasattr(self.controller, "contribution"):
+                contrib = np.asarray(
+                    self.controller.contribution(times, c), np.float32)
+        if dp is not None:
+            # the other ranks aggregate with the lead's vector as sent
+            c, contrib, iter_time = self._broadcast_decision(
+                n, c, contrib, iter_time, dp)
 
         batch = dict(self.data.batch(self.step))
+        if dp is not None:
+            # this rank's rows of the global batch; the cutoff vector
+            # below stays global
+            batch = _split(batch, dp.size)[dp.index]
         if self.mask_agg == "psum":
             batch["mask"] = contrib
         else:
-            batch["weights"] = collectives.example_weights(
-                contrib, batch["tokens"].shape[0])
+            rows = batch["tokens"].shape[0] * (1 if dp is None else dp.size)
+            batch["weights"] = collectives.example_weights(contrib, rows)
         decay = self._stale_decay
         if decay is not None:
             self._stale_batch(batch, decay)
@@ -665,8 +861,9 @@ class Trainer:
                     "stale_reuse=True): this one returned no "
                     "metrics['stale'] buffer")
             self._stale = metrics.pop("stale")
-        with span("controller.observe"):
-            self.controller.observe(times, finished)
+        if lead:
+            with span("controller.observe"):
+                self.controller.observe(times, finished)
         self.step += 1
         self.sim_clock += iter_time
         rec = {"step": self.step, "clock": self.sim_clock, "c": c,

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
+from repro_torch.dist import sharding as shd
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
@@ -294,7 +295,7 @@ def _run_encoder(cfg, params, frames):
 
 
 def forward(cfg, params, batch, mode: str = "train", caches=None,
-            pos=None):
+            pos=None, head: bool = True):
     """Train, prefill or decode.
 
     batch: tokens (B, S) and positions (B, S), or (3, B, S) for M-RoPE;
@@ -315,6 +316,9 @@ def forward(cfg, params, batch, mode: str = "train", caches=None,
     fresh caches; decode the next logits and the updated caches (KV caches
     written in place).  ``aux`` is the auxiliary loss, 0 for every family
     but MoE, the sum over the MoE layers (f32) for the MoE family.
+    ``head=False`` returns the final-norm hidden state (B, S, D) in place
+    of the logits, every position's (the fused CEs apply the head
+    themselves).
     The JAX forward rematerializes each layer in training;
     at the port's sizes (one H100, 80 GB) the activations fit, so nothing
     is recomputed.
@@ -344,12 +348,74 @@ def forward(cfg, params, batch, mode: str = "train", caches=None,
             aux = aux + a
         new_caches.append(c)
     x = L.apply_norm(cfg, params["final_norm"], x)
+    if not head:
+        return x, None if mode == "train" else new_caches, aux
     if mode == "prefill":
         # serving needs the last position's logits only: slice BEFORE the
         # head so the (B, S, V) logits tensor never materializes
         x = x[:, -1:]
     return (lm_logits(cfg, params, x),
             None if mode == "train" else new_caches, aux)
+
+
+def ring_ce_sum(cfg, params, x, labels, weights=None):
+    """Sum over tokens of the weighted CE of the final hidden ``x`` (B, S,
+    D): the reference's vocab-ring fused CE.  Outside ``train_sp`` (LOCAL,
+    and the data-parallel layouts, where each rank holds its own rows)
+    that is the dense sum over the head's logits, as the reference's local
+    branch computes it.  The ring itself raises: it waits for the
+    ``train_sp`` slice."""
+    lay = shd.layout()
+    if (lay.mesh is not None and lay.mode == "train_sp"
+            and lay.model_axis is not None):
+        raise NotImplementedError(
+            "ring_ce_sum's vocab ring under train_sp is not ported yet: it "
+            f"waits for {shd.WAITS_FOR['train_sp']}")
+    return _ce_sum_dense(lm_logits(cfg, params, x), labels, weights)
+
+
+def chunked_ce_sum(cfg, params, x, labels, weights, vchunk: int):
+    """Vocab-chunked fused CE: the sum over tokens of the weighted CE of
+    the final hidden ``x`` (B, S, D), the head streamed in slices of
+    ``vchunk`` columns with running (max, sum-exp, label-logit)
+    accumulators in f32, so no (B S, V) logits tensor is built at once.
+
+    When ``vchunk`` does not divide V the last slice holds the remaining
+    columns.  (The reference's ``dynamic_slice`` clamps that slice's start
+    into range, so its last chunk re-reads earlier columns under the pad
+    columns' labels and its sum differs from the dense CE; the port
+    computes the dense CE's value, ROADMAP C.21.)
+    """
+    # tied: the (V, D) embedding rows; else the (D, V) lm_head
+    w = (params["embed"]["table"] if cfg.tie_embeddings
+         else params["lm_head"]["w"])
+    B, S, D = x.shape
+    V = cfg.vocab_size
+    xf = x.reshape(-1, D).float()
+    labf = labels.reshape(-1).long()
+    T = xf.shape[0]
+    m_run = torch.full((T,), -1e30, dtype=torch.float32, device=x.device)
+    s_run = torch.zeros((T,), dtype=torch.float32, device=x.device)
+    ll = torch.zeros((T,), dtype=torch.float32, device=x.device)
+    for off in range(0, V, vchunk):
+        if cfg.tie_embeddings:
+            logits = xf @ w[off:off + vchunk].float().T
+        else:
+            logits = xf @ w[:, off:off + vchunk].float()
+        n = logits.shape[1]
+        m_new = torch.maximum(m_run, torch.max(logits, dim=-1).values)
+        s_run = (s_run * torch.exp(m_run - m_new)
+                 + torch.sum(torch.exp(logits - m_new[:, None]), dim=-1))
+        m_run = m_new
+        rel = labf - off
+        inr = (rel >= 0) & (rel < n)
+        pick = torch.gather(logits, 1,
+                            torch.clamp(rel, 0, n - 1)[:, None])[:, 0]
+        ll = torch.where(inr, pick, ll)
+    ce = (m_run + torch.log(torch.clamp(s_run, min=1e-30))) - ll
+    if weights is not None:
+        ce = ce * weights.float()[:, None].expand(B, S).reshape(-1)
+    return torch.sum(ce)
 
 
 def _ce_sum_dense(logits, labels, weights=None):

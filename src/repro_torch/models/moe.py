@@ -4,7 +4,7 @@ Twin of the no-mesh path of ``repro.models.moe`` (the ``tp == 1`` branch
 of ``_dispatch_compute_combine``, which its decode takes too, with the
 capacity of B tokens).  The JAX module's expert-parallel branches (the
 ``train_sp`` all-to-all, the ``decode_tp`` masked psum) wait for the
-port's multi-GPU layer (ROADMAP A.15).  Plain PyTorch throughout, as the
+port's ``train_sp`` and ``decode_tp`` slices (ROADMAP A.15.3, A.15.4).  Plain PyTorch throughout, as the
 reference computes MoE outside any Pallas kernel: the expert products are
 batched matmuls, JAX's ``jnp.einsum`` over the banks.
 
@@ -35,6 +35,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.perf.knobs import knobs
 
 
 def moe_init(cfg, normal):
@@ -89,9 +91,11 @@ def _aux(cfg, f_e, p_e):
 
 def capacity_for(cfg, n_tokens: int, factor: Optional[float] = None) -> int:
     """Slots per expert for ``n_tokens``: ceil(n k / E * factor) rounded up
-    to a multiple of 8, at least 8.  ``factor`` defaults to
-    ``cfg.moe_capacity_factor``; the port has no ``perf/knobs`` yet
-    (ROADMAP A.15), so no knob overrides it."""
+    to a multiple of 8, at least 8.  ``factor`` defaults to the knob
+    ``moe_capacity_factor`` when it is set (``perf.knobs``), else to
+    ``cfg.moe_capacity_factor``, as in the reference."""
+    if factor is None and knobs().moe_capacity_factor > 0:
+        factor = knobs().moe_capacity_factor
     factor = factor if factor is not None else cfg.moe_capacity_factor
     c = int(math.ceil(n_tokens * cfg.top_k / cfg.n_experts * factor))
     return max(8, -(-c // 8) * 8)

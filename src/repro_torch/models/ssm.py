@@ -7,8 +7,8 @@ version of the Hopper kernel and lives beside it in
 JAX module's names.  The JAX module also shards the sequence over the
 "model" axis under the ``train_sp`` layout (an exclusive prefix across
 shards, a conv halo, a gathered sLSTM); those branches wait for the port's
-multi-GPU layer (ROADMAP A.15), and every function here is the JAX local
-path.
+``train_sp`` slice (ROADMAP A.15.3), and every function here is the JAX
+local path.
 
 The xLSTM and Hymba prefills on the card go through the kernel
 ``kernels.mlstm_chunk``; on CPU tensors they run ``linear_recurrence``.
