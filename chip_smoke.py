@@ -79,12 +79,17 @@ Phases, one JSON line each; any failure exits non-zero:
                  ((mask @ g) / c) / bound ms.  Every grid case also in the
                  sum mode (mean=False: the masked sum, undivided), and the
                  (8, 494,032,768) buffer in it: kernel / plain / library
-                 (mask @ g) / bound ms (the mean's bytes)
+                 (mask @ g) / bound ms (the mean's bytes); then the sum over
+                 an (8, N) buffer laid out shard-major (a ShardPlan at 2, 4
+                 and 8 shards, zero1 off and on) against the natural-order
+                 sum, permuted, bit for bit
   fused_adam     the kernel against reference_adam at steps 1 and 100, wd 0
                  and 0.01, bf16 and f32 p (f32 m/v), on every distinct layer
                  shape plus ragged and unaligned leaves; then one checked
                  step over the 290 full-width leaves (bf16 p), timed:
-                 kernel / plain / library (torch AdamW fused=True) / bound ms
+                 kernel / plain / library (torch AdamW fused=True) / bound ms;
+                 then one launch over each rank's slices at 2, 4 and 8
+                 shards against the slices of the full update, bit for bit
   train          full-width qwen2-0.5b cutoff SGD (bf16, seeded init):
                  SyntheticTokens(seq 128, batch 16), 8 workers,
                  FirstKController(8, backup=2), ClusterSim(8, 2 nodes, seed
@@ -107,6 +112,16 @@ Phases, one JSON line each; any failure exits non-zero:
                  beside the step's, and the weights gradient's all-reduce
                  made one leaf at a time (the design the flat buffer
                  replaced)
+  train_zero3    train's setup, seeds and mask schedule through ZeRO-3:
+                 NCCL at world size 1, a (1, 1) ("data", "model") mesh in
+                 train_fsdp, W 8; zero1 off, then on: the 4 psum steps (a
+                 gather a block a forward and again in the backward's
+                 recompute, one masked_grad_agg sum-mode launch over the
+                 shard-major buffer, the reduce-scatter, one fused_adam
+                 launch over the shards), then the weights step; launches
+                 and collectives every step, the gathered parameters
+                 bit-equal to train's; the collectives alone at the step's
+                 sizes, ms beside the step's
   train_parity   the same psum step at full width and 2 layers, f32, W = 4,
                  2 steps, on the CPU (plain versions) and on the card
                  (kernels): loss, aggregated gradient, m, v and p
@@ -316,12 +331,12 @@ Phases, one JSON line each; any failure exits non-zero:
                  windowed layer), f32, 2 x 1100-token prompts: prefill
                  logits within 1e-4 and equal greedy ids, CPU against the
                  card
-  train_hymba    hymba-1.5b at depth 16 (872,454,000 parameters, bf16)
+  train_hymba    hymba-1.5b at depth 4 (294,917,100 parameters, bf16)
                  under train_dmm's DMM controller: seq 128 x batch 16, W
                  8, psum, fused AdamW; 2 steps, then a replay from the
                  same state that must match them bit for bit (losses,
                  cutoffs, parameters) and goes on to 3 steps, each
-                 asserting its launches (flash and mlstm_chunk 16 x 8,
+                 asserting its launches (flash and mlstm_chunk 4 x 8,
                  masked_grad_agg 1, fused_adam 1) and a finite loss; wall
                  ms, peak memory; the device's busy share of one more
                  step; both kernels timed on the trainer's own buffer
@@ -1518,7 +1533,119 @@ def phase_masked_agg(torch):
             worst_sum = max(worst_sum, err)
         del g
         torch.cuda.empty_cache()
+    results["shard_major"] = _shard_major_agg(torch, gen, side)
+    torch.cuda.empty_cache()
     return results, worst, worst_sum
+
+
+# the shard checks' tree: qwen2-0.5b's two MLP shapes (dim 0 divisible by
+# every shard count), and leaves no count divides on dim 0 (sharded on
+# dim 1) or on any dim (replicated)
+SHARD_LEAVES = {"a": (896, 4864), "b": (4864, 896), "c": (3, 1024),
+                "d": (5, 7), "e": (896,), "f": (7, 8, 64)}
+SHARD_COUNTS = (2, 4, 8)
+
+
+class ShapeMesh:
+    """A shape-only ("data", "model") mesh on which this process sits at
+    ``coords``: what ``dist.sharding.shard_plan`` reads of a mesh."""
+    axis_names = ("data", "model")
+
+    def __init__(self, shape, coords=(0, 0)):
+        self.shape = dict(zip(self.axis_names, shape))
+        self.coords = dict(zip(self.axis_names, coords))
+
+    def index(self, axes):
+        i = 0
+        for a in axes:
+            i = i * self.shape[a] + self.coords[a]
+        return i
+
+
+def _shard_plan(torch, like, T, D=1, coords=(0, 0), zero1=False):
+    from repro_torch.dist import sharding as shd
+
+    lay = shd.make_layout(ShapeMesh((D, T), coords), "train_fsdp")
+    return shd.shard_plan(like, lay, zero1=zero1)
+
+
+def _shard_major_agg(torch, gen, side):
+    """The kernel's sum over an (8, N) buffer laid out shard-major
+    (``ops.WorkerGrads`` on a ``ShardPlan``) at 2, 4 and 8 shards, zero1
+    off and on (D 2): each leaf's columns of the result against the
+    natural-order sum's leaf viewed the same way, bit for bit."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.masked_grad_agg import masked_grad_agg
+
+    W = 8
+    like = {k: torch.empty(sh, device="cuda")
+            for k, sh in SHARD_LEAVES.items()}
+    nat = ops.WorkerGrads(like, W)
+    nat.buf.copy_(torch.randn(nat.buf.shape, generator=gen, device="cuda"))
+    mask = _agg_masks(torch, W, gen)["fractional"]
+    want = nat._split(masked_grad_agg(nat.buf, mask, mean=False))
+    out = {"N": nat.buf.shape[1], "W": W, "cases": 0}
+    for T, zero1 in itertools.product(SHARD_COUNTS, (False, True)):
+        plan = _shard_plan(torch, like, T, 2, zero1=zero1)
+        sm = ops.WorkerGrads(like, W, plan=plan)
+        for w in range(W):
+            for i in range(len(plan.leaves)):
+                sm.rows[w][i].copy_(sm.fit(i, nat.rows[w][i]))
+        got = masked_grad_agg(sm.buf, mask, mean=False)
+        equal = all(torch.equal(plan.columns(i, got), plan.split(i, x))
+                    for i, x in enumerate(want))
+        check(equal, f"masked_grad_agg: the shard-major sum at {T} shards "
+              f"(zero1 {zero1}) is not the natural sum, permuted")
+        dims = sorted({str(leaf.dim) for leaf in plan.leaves})
+        check(dims == ["0", "1", "None"], f"shard plan dims {dims}")
+        out["cases"] += 1
+        if T == 8 and not zero1:
+            out["ms"] = device_ms(torch, lambda: masked_grad_agg(
+                sm.buf, mask, mean=False), side)
+            out["natural_ms"] = device_ms(torch, lambda: masked_grad_agg(
+                nat.buf, mask, mean=False), side)
+        del sm, got
+    out["bit_equal"] = True
+    emit("masked_grad_agg", case="shard_major", shards=SHARD_COUNTS, **out)
+    return out
+
+
+def _shard_adam(torch, gen):
+    """One fused_adam launch over a rank's slices (each a contiguous copy,
+    as a ZeRO-3 rank holds them) at 2, 4 and 8 shards, every rank: its p,
+    m and v against the slices of one launch over the full leaves, bit
+    for bit."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused_adam import fused_adam_
+
+    shapes = list(SHARD_LEAVES.values())
+    ps, gs, ms, vs = _adam_inputs(torch, shapes, torch.bfloat16, gen)
+    scal = ops.adam_scalars(4, 1e-3, 0.9, 0.999)
+    full = [[x.clone() for x in t] for t in (ps, ms, vs)]
+    fused_adam_(full[0], gs, full[1], full[2], scal, wd=0.01)
+    like = dict(zip(SHARD_LEAVES, ps))
+    ranks = 0
+    for T in SHARD_COUNTS:
+        for s in range(T):
+            plan = _shard_plan(torch, like, T, coords=(0, s))
+
+            def cut(t):
+                return [torch.empty_like(plan.slice_of(i, x),
+                                         memory_format=torch.contiguous_format)
+                        .copy_(plan.slice_of(i, x)) for i, x in enumerate(t)]
+
+            sp, sg, sm, sv = cut(ps), cut(gs), cut(ms), cut(vs)
+            fused_adam_(sp, sg, sm, sv, scal, wd=0.01)
+            for got, want in zip((sp, sm, sv), full):
+                check(all(torch.equal(a, plan.slice_of(i, b))
+                          for i, (a, b) in enumerate(zip(got, want))),
+                      f"fused_adam: rank {s} of {T} shards differs from the "
+                      f"full update's slice")
+            ranks += 1
+    rec = {"shards": SHARD_COUNTS, "ranks": ranks, "leaves": len(shapes),
+           "bit_equal": True}
+    emit("fused_adam", case="shard_views", **rec)
+    return rec
 
 
 def _adam_inputs(torch, shapes, p_dt, gen, offset=()):
@@ -1650,6 +1777,8 @@ def phase_fused_adam(torch, shapes):
     results[rec["case"]] = rec
     emit("fused_adam", **rec)
     del ps, gs, ms, vs, lib_params, lib, fns
+    torch.cuda.empty_cache()
+    results["shard_views"] = _shard_adam(torch, gen)
     torch.cuda.empty_cache()
     return results, worst
 
@@ -1968,6 +2097,226 @@ def _train_dp(torch, cfg, params_f32, ref, t_setup):
            / step_ms,
            "max_memory_allocated": peak, "seconds": seconds, **times}
     emit("train_dp", **rec)
+    return totals, rec
+
+
+def phase_train_zero3(torch, cfg, params_f32, ref):
+    """train's setup, seeds and schedule through the ZeRO-3 path: an NCCL
+    process group of world size 1, a (1, 1) ("data", "model") mesh in
+    ``train_fsdp`` (a model axis of one shard: every gather,
+    reduce-scatter and all-reduce still runs), W 8 on the one rank.  Two
+    runs, zero1 off and on, each 4 psum steps (the block gathers, each
+    worker's full gradient into the shard-major buffer, one sum-mode
+    kernel launch, the reduce-scatter, the sums, one fused Adam launch)
+    then one weights step; each step's kernel launches and collectives
+    counted, and the gathered parameters held against train's
+    one-process run (``ref``, which train_dp holds too), bit for bit.
+    Then the collectives alone at the step's sizes, ms beside the
+    step's."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.dist import collectives
+    from repro_torch.launch.mesh import init_distributed
+
+    t_setup = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        init_distributed("cuda", init_method=f"file://{d}/pg", rank=0,
+                         world_size=1)
+        try:
+            return _train_zero3(torch, cfg, params_f32, ref, t_setup)
+        finally:
+            collectives.Zero3._cache.clear()
+            dist.destroy_process_group()
+
+
+ZERO3_COLLECTIVES = ("all_gather", "reduce_scatter", "all_reduce",
+                     "broadcast")
+
+
+def _train_zero3(torch, cfg, params_f32, ref, t_setup):
+    import torch.distributed as dist
+
+    from repro_torch import optim, tree
+    from repro_torch.cluster.simulator import ClusterSim
+    from repro_torch.core.controller import FirstKController
+    from repro_torch.dist import collectives
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import gather_state, make_train_step
+
+    W, S, B, L = 8, 128, 16, cfg.n_layers
+    mesh = make_mesh((1, 1), ("data", "model"))
+    lay = shd.make_layout(mesh, "train_fsdp")
+    check(shd.is_zero3(lay) and lay.n_shards == 1 and lay.dp_size == 1,
+          f"train_zero3 layout {lay}")
+    # a forward gathers each block, the embedding twice (the tied head)
+    # and the final norm; the backward's recompute each block again
+    per_forward = 2 * L + 3
+    seconds = {"setup": time.perf_counter() - t_setup}
+    calls = {k: 0 for k in ZERO3_COLLECTIVES}
+    real = {k: getattr(dist, k) for k in calls}
+
+    def counting(name):
+        def call(*a, **k):
+            calls[name] += 1
+            return real[name](*a, **k)
+        return call
+
+    def one_step(tr, label, want, zero1, workers):
+        build.LAUNCHES.clear()
+        before = dict(calls)
+        t0 = time.perf_counter()
+        with shd.use_layout(lay):
+            rec = tr.run(1)[-1]
+        wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        check(launches == want, f"train_zero3 {label} step {rec['step']}: "
+              f"launches {launches}, want {want}")
+        made = {k: calls[k] - before[k] for k in calls}
+        check(made["reduce_scatter"] == 1 + zero1
+              and made["all_gather"] == workers * per_forward + zero1
+              and made["broadcast"] == 1 and made["all_reduce"] >= 2,
+              f"train_zero3 {label} step {rec['step']}: collectives {made}")
+        check(bool(np.isfinite(rec["loss"])),
+              f"train_zero3 {label} step {rec['step']}: loss {rec['loss']}")
+        emit("train_zero3", zero1=zero1, mask_agg=label, step=rec["step"],
+             wall_ms=wall * 1e3, c=rec["c"], loss=rec["loss"],
+             launches=launches, collectives=made)
+        return rec, launches, wall * 1e3
+
+    totals, runs, keep = {}, {}, None
+    for k in calls:
+        setattr(dist, k, counting(k))
+    try:
+        for zero1 in (False, True):
+            t_run = time.perf_counter()
+            params = cast(params_f32, "cuda", torch.bfloat16)
+            opt = optim.adamw(optim.cosine_schedule(3e-4, 2, 20), fused=True)
+            step_fn = make_train_step(cfg, opt, mask_agg="psum", zero1=zero1)
+            with shd.use_layout(lay):
+                tr, _ = _train_setup(
+                    torch, cfg, params, n_workers=W, seq=S, batch=B,
+                    controller=FirstKController(W, backup=2),
+                    timer=ClusterSim(n_workers=W, n_nodes=2, seed=7),
+                    opt=opt, step_fn=step_fn)
+            del params
+            plan = step_fn.plan_for(lay)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            walls = []
+            want = {"flash_attention": 2 * L * W, "masked_grad_agg_sum": 1,
+                    "fused_adam": 1}
+            for _ in range(TRAIN_STEPS + 1):
+                _, launches, wall = one_step(tr, "psum", want, zero1, W)
+                walls.append(wall)
+                for k, v in launches.items():
+                    totals[k] = totals.get(k, 0) + v
+            peak = torch.cuda.max_memory_allocated()
+            with shd.use_layout(lay):
+                got = tree.leaves(gather_state(tr.state, plan,
+                                               lay)["params"])
+            psum_equal = all(torch.equal(a, b)
+                             for a, b in zip(got, ref["psum"]))
+            psum_gap = max((a.float() - b.float()).abs().max().item()
+                           for a, b in zip(got, ref["psum"]))
+            del got
+            tr.step_fn = make_train_step(cfg, opt, mask_agg="weights",
+                                         zero1=zero1)
+            tr.mask_agg = "weights"
+            _, launches, w_wall = one_step(
+                tr, "weights", {"flash_attention": 2 * L, "fused_adam": 1},
+                zero1, 1)
+            for k, v in launches.items():
+                totals[k] = totals.get(k, 0) + v
+            with shd.use_layout(lay):
+                got = tree.leaves(gather_state(tr.state, plan,
+                                               lay)["params"])
+            final_equal = all(torch.equal(a, b)
+                              for a, b in zip(got, ref["final"]))
+            final_gap = max((a.float() - b.float()).abs().max().item()
+                            for a, b in zip(got, ref["final"]))
+            del got
+            runs[zero1] = {
+                "psum_bit_equal": psum_equal, "psum_max_abs_diff": psum_gap,
+                "weights_bit_equal": final_equal,
+                "weights_max_abs_diff": final_gap,
+                "psum_wall_ms": float(np.median(walls)),
+                "weights_wall_ms": w_wall, "max_memory_allocated": peak,
+                "seconds": time.perf_counter() - t_run}
+            emit("train_zero3", zero1=zero1, **runs[zero1])
+            if zero1:
+                keep = (tr.state["params"], plan)
+            del tr, opt, step_fn
+            torch.cuda.empty_cache()
+    finally:
+        for k in calls:
+            setattr(dist, k, real[k])
+    for zero1, r in runs.items():
+        check(r["psum_bit_equal"], f"train_zero3 zero1={zero1}: the psum "
+              f"steps' parameters differ from train's (max |diff| "
+              f"{r['psum_max_abs_diff']})")
+        check(r["weights_bit_equal"], f"train_zero3 zero1={zero1}: the "
+              f"weights step's parameters differ from train's (max |diff| "
+              f"{r['weights_max_abs_diff']})")
+
+    # the collectives alone, as a step makes them (eager, host launch
+    # included), at world size 1
+    t_c = time.perf_counter()
+    shards, plan = keep
+    z = collectives.Zero3.of(lay, plan)
+    flat = tree.leaves(shards)
+    blocks = {}
+    for i, leaf in enumerate(plan.leaves):
+        parts = leaf.path.split("/")
+        key = "/".join(parts[:2]) if parts[0] == "layers" else parts[0]
+        blocks.setdefault(key, []).append(i)
+    idx = list(blocks.values())
+    total = torch.zeros(plan.size + 1, dtype=torch.float32, device="cuda")
+    red = torch.empty(plan.block, dtype=torch.float32, device="cuda")
+    pieces, groups = z._piece_buffers(flat)
+
+    def gather_all():
+        for ii in idx:
+            z.gather_full(ii, [flat[i] for i in ii])
+
+    def piece_gather():
+        for buf, _ in groups:
+            recv = list(torch.empty(buf.numel(), dtype=buf.dtype,
+                                    device=buf.device).chunk(1))
+            dist.all_gather(recv, buf, group=z.g_data)
+
+    times = {
+        "gathers_per_forward_ms": eager_ms(torch, gather_all,
+                                           reps=COLLECTIVE_REPS),
+        "reduce_ms": eager_ms(torch, lambda: z.reduce(total),
+                              reps=COLLECTIVE_REPS),
+        "reduce_scatter_ms": eager_ms(
+            torch, lambda: dist.reduce_scatter(
+                red, [total[:plan.block]], group=z.g_model),
+            reps=COLLECTIVE_REPS),
+        "piece_all_gather_ms": eager_ms(torch, piece_gather,
+                                        reps=COLLECTIVE_REPS)}
+    del total, red, pieces, groups, shards, flat, keep, z
+    collectives.Zero3._cache.clear()
+    torch.cuda.empty_cache()
+    seconds["collectives"] = time.perf_counter() - t_c
+    for zero1, r in runs.items():
+        step_coll = (2 * W * times["gathers_per_forward_ms"]
+                     + times["reduce_ms"]
+                     + (times["piece_all_gather_ms"] if zero1 else 0.0))
+        r["collectives_ms_per_psum_step"] = step_coll
+        r["collectives_share_of_psum_step"] = step_coll / r["psum_wall_ms"]
+    rec = {"world_size": dist.get_world_size(),
+           "backend": dist.get_backend(), "W": W, "mesh": dict(mesh.shape),
+           "params": sum(leaf.size for leaf in plan.leaves),
+           "block_gathers_per_forward": per_forward,
+           "train_psum_wall_ms": ref["psum_wall_ms"],
+           "zero1_off": runs[False], "zero1_on": runs[True],
+           "seconds": seconds, **times}
+    emit("train_zero3", **rec)
     return totals, rec
 
 
@@ -5249,16 +5598,19 @@ def phase_train_moe_parity(torch, cfg_full):
 # ---------------------------------------------------------------------------
 # Hymba (hymba-1.5b): attention and Mamba heads in parallel in every layer,
 # served at full depth with a prompt past the 1024-token window, trained
-# at depth 16 under the DMM cutoff.
+# at depth 4 under the DMM cutoff.
 # ---------------------------------------------------------------------------
 
 # the reference's own tree (jax.eval_shape of repro.models.model.init_model):
 # ArchConfig.n_params() leaves out the Mamba sublayer (ROADMAP, known gaps)
 HYMBA_PARAMS = 1_642_503_200
-# layers 0 and 15 global, the rest windowed: the (8, N) buffer at full
-# depth is 52.6 GB; depth 24 took 47-63 s of the script, 16 pays for train_dp
-HYMBA_TRAIN_DEPTH = 16
-HYMBA_TRAIN_PARAMS = 872_454_000
+# layer 0 global, the rest windowed (the 1024-token window is wider than
+# the training rows: no mask differs); the (8, N) buffer at full depth is
+# 52.6 GB; depth 24 took 47-63 s of the script, 16 paid for train_dp
+# (31.6 s of a 795.8 s run on an H100 80GB HBM3 at 700 W), 4 pays for
+# train_zero3 (20.5 s of that run)
+HYMBA_TRAIN_DEPTH = 4
+HYMBA_TRAIN_PARAMS = 294_917_100
 HYMBA_STEPS = 3
 HYMBA_REPLAY = 2
 # depth 2 in f32: the CPU and the card sum in other orders; the xLSTM's
@@ -5374,14 +5726,14 @@ def phase_serve_hymba_parity(torch, cfg_full):
 
 
 def phase_train_hymba(torch, cfg_full, rm):
-    """hymba-1.5b at full width and depth 16 (layers 0 and 15 global, the
-    rest windowed; bf16, weights drawn on the card) trained by the psum
+    """hymba-1.5b at full width and depth 4 (layer 0 global, the rest
+    windowed; bf16, weights drawn on the card) trained by the psum
     step under train_dmm's DMM controller over ClusterSim(8, 2 nodes, seed
     7): seq 128 x batch 16, W 8, fused AdamW.  A first run of HYMBA_REPLAY
     steps, then a second from the same state, controller, timer and data
     that must give the same losses, cutoffs and parameters bit for bit
     over those steps and goes on to HYMBA_STEPS, each asserting its
-    launches (flash and mlstm_chunk 16 x 8, masked_grad_agg 1, fused_adam
+    launches (flash and mlstm_chunk 4 x 8, masked_grad_agg 1, fused_adam
     1) and a finite loss.  The two runs share one step function: one
     (8, N) buffer.  Then the device's busy share of one more step."""
     from repro_torch import tree
@@ -6058,12 +6410,16 @@ def main() -> int:
     timed(sec, "serve_parity", phase_parity, torch, cfg, params_f32)
     agg, agg_err, agg_sum_err = timed(sec, "masked_grad_agg",
                                       phase_masked_agg, torch)
+    agg_shard = agg.pop("shard_major")
     shapes = [tuple(x.shape) for x in tree.leaves(params_f32)]
     adam, adam_err = timed(sec, "fused_adam", phase_fused_adam, torch, shapes)
+    adam_shard = adam.pop("shard_views")
     train_launches, firstk_clocks, train_ref = timed(
         sec, "train", phase_train, torch, cfg, params_f32)
     dp_launches, dp_rec = timed(sec, "train_dp", phase_train_dp, torch, cfg,
                                 params_f32, train_ref)
+    z3_launches, z3_rec = timed(sec, "train_zero3", phase_train_zero3, torch,
+                                cfg, params_f32, train_ref)
     del train_ref
     timed(sec, "train_parity", phase_train_parity, torch, cfg)
     timed(sec, "dmm", phase_dmm, torch)
@@ -6136,6 +6492,7 @@ def main() -> int:
         by_path = {"serve": serve_launches.get(name, 0),
                    "train_psum_steps": train_launches.get(name, 0),
                    "train_dp": dp_launches.get(name, 0),
+                   "train_zero3": z3_launches.get(name, 0),
                    "train_dmm": dmm_launches.get(name, 0),
                    "obs": obs_launches.get(name, 0),
                    "train_policies": policy_launches.get(name, 0),
@@ -6192,7 +6549,7 @@ def main() -> int:
                  ("moe", adam_moe), ("hymba", adam_hymba),
                  ("whisper", adam_whisper), ("qwen2vl", adam_vl))
               for k in ("params", "ms", "plain_ms", "library_ms",
-                        "bound_ms")}),
+                        "bound_ms")} | {"shard_views": adam_shard}),
             ("mlstm_chunk", "src/repro/kernels/mlstm_chunk.py:87",
              mlstm_err, mlstm[MLSTM_HEADLINE], MLSTM_HEADLINE,
              {**mlstm_extra,
@@ -6231,7 +6588,14 @@ def main() -> int:
         "mode": "sum (mean=False: the masked sum, undivided)",
         **{f"train_dp_{k}": dp_rec[k] for k in (
             "all_reduce_psum_ms", "all_reduce_weights_ms", "broadcast_ms",
-            "psum_wall_ms", "all_reduce_share_of_psum_step")}})
+            "psum_wall_ms", "all_reduce_share_of_psum_step")},
+        **{f"train_zero3_{k}": z3_rec[k] for k in (
+            "gathers_per_forward_ms", "reduce_ms", "reduce_scatter_ms",
+            "piece_all_gather_ms")},
+        **{f"train_zero3_{part}_{k}": z3_rec[part][k]
+           for part in ("zero1_off", "zero1_on")
+           for k in ("psum_wall_ms", "collectives_share_of_psum_step")},
+        "shard_major": agg_shard})
     # the serve decode's call: the key count on the device (graph decode)
     dec = flash_len[FLASH_LEN_HEADLINE]
     rows[0].update({"decode_case": FLASH_LEN_HEADLINE,

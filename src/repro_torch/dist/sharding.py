@@ -17,31 +17,46 @@
   * ``placement(tree, lay, stacked_paths=...)`` — the ZeRO-3 placement rule
     of the reference's ``named_sharding``: for each leaf, the dim sharded
     over the model axis, or None.
+  * ``shard_plan(tree, lay, zero1=...)`` — a :class:`ShardPlan`: each
+    leaf's placement, this rank's slice, and its columns in the
+    shard-major flat order of the ZeRO-3 gradient buffers.
+  * ``use_weight(tree)`` — the use-site gather of ZeRO-3-sharded weights
+    (identity unless a train step's gather is active), ``remat`` — a
+    block run so that its gathered weights are gathered again in the
+    backward instead of kept, and ``act(x, dp, sp, tp)`` — the
+    activation constraint (identity under every layout the port runs).
 
 A mesh is anything with ``axis_names`` and ``shape`` by axis name: the
 port's ``launch.mesh.Mesh`` over a process group (what the train step
 runs on), or a shape-only mesh (the reference's ``AbstractMesh`` in the
 tests).
 
-The port runs the data-parallel part: a layout whose model axis has one
-shard, in mode ``train_fsdp`` (or a hand-built pure-dp ``Layout``, as the
-reference's ``tests/sharded/mask_agg_check.py`` builds).  ZeRO-3 over the
-model axis, ``train_sp`` and ``decode_tp`` raise by name
+The port runs ``train_fsdp``: the batch over the whole mesh and, when the
+layout names a model axis (``make_layout`` always does), the parameters
+and moments ZeRO-3 over it (``launch.train``, ``dist.collectives.Zero3``);
+a hand-built ``Layout`` without a model axis is pure data parallelism.
+``train_sp`` and ``decode_tp`` raise by name
 (:func:`require_data_parallel`); nothing falls back to one process.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import math
 from dataclasses import dataclass
-from typing import Any, Optional, Sequence, Tuple
+from typing import Any, Callable, Optional, Sequence, Tuple
+
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.tree import leaves as tree_leaves
 
 MODES = ("local", "train_sp", "train_fsdp", "decode_tp")
 
 #: what each unported part of a layout waits for (ROADMAP A.15's slices)
 WAITS_FOR = {
+    # ported: ZeRO-3 over the model axis under train_fsdp, with zero1
     "model": "ROADMAP A.15.2 (ZeRO-3 over the model axis, state_shardings "
-             "and zero1)",
+             "and zero1; ported for train_fsdp)",
     "train_sp": "ROADMAP A.15.3 (train_sp: sequence parallelism, the ring "
                 "CE and ssm.py's train_sp branches)",
     "decode_tp": "ROADMAP A.15.4 (decode_tp: tensor-parallel decode with "
@@ -126,12 +141,20 @@ def make_layout(mesh, mode: str) -> Layout:
                   seq_axis=None, tp_axis=model)
 
 
+def is_zero3(lay) -> bool:
+    """True for a layout whose parameters are ZeRO-3 over a model axis:
+    ``train_fsdp`` on a mesh with a model axis (of any size, 1 included:
+    every collective still runs)."""
+    return (isinstance(lay, Layout) and lay.mesh is not None
+            and lay.mode == "train_fsdp" and lay.model_axis is not None)
+
+
 def require_data_parallel(lay: Layout, what: str) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item that ``what``
-    waits for under ``lay``: ``train_sp``, ``decode_tp``, or a model axis
-    of more than one shard; or, for anything but a :class:`Layout` (the
-    reference's own, say), that the port runs none.  LOCAL and pure
-    data-parallel layouts pass."""
+    waits for under ``lay``: ``train_sp`` or ``decode_tp``; or, for
+    anything but a :class:`Layout` (the reference's own, say), that the
+    port runs none.  LOCAL, pure data-parallel layouts and ``train_fsdp``
+    with a model axis of any size (ZeRO-3) pass."""
     if not isinstance(lay, Layout):
         raise NotImplementedError(
             f"{what} takes a repro_torch.dist.sharding.Layout; a "
@@ -142,11 +165,6 @@ def require_data_parallel(lay: Layout, what: str) -> None:
         raise NotImplementedError(
             f"{what} under a {lay.mode} layout is not ported yet: it waits "
             f"for {WAITS_FOR[lay.mode]}")
-    if lay.n_shards > 1:
-        raise NotImplementedError(
-            f"{what} with {lay.n_shards} shards on the model axis "
-            f"{lay.model_axis!r} is not ported yet: it waits for "
-            f"{WAITS_FOR['model']}")
 
 
 # ---------------------------------------------------------------------------
@@ -221,3 +239,259 @@ def placement(tree, lay: Layout, *, stacked_paths: Sequence[str] = ()):
         return None
 
     return _map_with_path(dim_for, tree)
+
+
+def _leaf_paths(node, path=()):
+    """Every leaf's path, in ``repro_torch.tree.leaves`` order (dict keys
+    sorted)."""
+    if isinstance(node, dict):
+        return [p for k in sorted(node)
+                for p in _leaf_paths(node[k], path + (str(k),))]
+    if isinstance(node, (list, tuple)):
+        return [p for i, v in enumerate(node)
+                for p in _leaf_paths(v, path + (str(i),))]
+    return ["/".join(path)]
+
+
+# ---------------------------------------------------------------------------
+# The shard plan: each leaf's slice and its columns in shard-major order.
+# ---------------------------------------------------------------------------
+
+
+def _row_major(shape):
+    out, acc = [], 1
+    for n in reversed(shape):
+        out.append(acc)
+        acc *= n
+    return tuple(reversed(out))
+
+
+@dataclass(frozen=True)
+class LeafPlan:
+    """One leaf of a :class:`ShardPlan`."""
+    path: str
+    shape: Tuple[int, ...]   # the full leaf's
+    dim: Optional[int]       # sharded over the model axis here; None:
+    #                          replicated
+    wide: bool               # zero1: its moments also split over "data"
+    offset: int              # its first column in its run (ShardPlan)
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+
+@dataclass(frozen=True)
+class ShardPlan:
+    """Where every leaf of a parameter tree lies under a ZeRO-3 layout.
+
+    T is the model axis's size and D the "data" axis's under zero1 (else
+    1).  A leaf sharded on dim k splits there into T slices; the rank at
+    index s on the model axis holds slice s.  With zero1, a leaf whose
+    dim k T·D divides is *wide*: its moments split into T·D pieces, and
+    the rank at (s, d) holds piece s·D + d, the d-th part of its slice
+    (the reference's ``(model, "data")`` spec, model major).  A leaf with
+    no such dim is replicated.
+
+    A full (N,) gradient buffer is shard-major: T blocks of ``block``
+    columns, block s holding slice s of every sharded leaf (first D runs
+    of ``wide`` columns, run d holding piece s·D + d of every wide leaf,
+    then ``narrow`` columns holding slice s of the other sharded leaves),
+    then the replicated leaves whole.  So a reduce-scatter of the blocks
+    hands each rank its slices in one contiguous piece, and one of its D
+    runs its zero1 pieces.  Each leaf's ``offset`` is its first column in
+    its run (wide, narrow or replicated).
+    """
+    leaves: Tuple[LeafPlan, ...]
+    n_shards: int            # T
+    n_data: int              # D
+    shard: int               # s: this rank's index on the model axis
+    data: int                # d: its index on "data" (0 without zero1)
+    wide: int                # columns of one run of wide pieces
+    narrow: int              # columns of the other slices in a block
+    replicated: int          # columns of the replicated leaves
+    zero1: bool = False
+
+    @property
+    def block(self) -> int:
+        return self.n_data * self.wide + self.narrow
+
+    @property
+    def size(self) -> int:
+        """N, the columns of a full buffer."""
+        return self.n_shards * self.block + self.replicated
+
+    def _parts(self, leaf):
+        return (self.n_shards, self.n_data) if leaf.wide else (
+            self.n_shards,)
+
+    def slice_shape(self, i, moments=False) -> Tuple[int, ...]:
+        """Leaf i's shape on a rank: its slice, or (``moments``) its
+        moments' piece; the whole leaf when replicated."""
+        leaf = self.leaves[i]
+        if leaf.dim is None:
+            return leaf.shape
+        shape = list(leaf.shape)
+        shape[leaf.dim] //= (math.prod(self._parts(leaf)) if moments
+                             else self.n_shards)
+        return tuple(shape)
+
+    def slice_of(self, i, full, moments=False):
+        """This rank's slice of the full leaf ``full`` (a view), or its
+        moments' piece (``moments``)."""
+        leaf = self.leaves[i]
+        if leaf.dim is None:
+            return full
+        n = leaf.shape[leaf.dim] // self.n_shards
+        start = self.shard * n
+        if moments and leaf.wide:
+            n //= self.n_data
+            start += self.data * n
+        return full.narrow(leaf.dim, start, n)
+
+    def columns(self, i, row):
+        """Leaf i's columns in the flat row ``row`` (N,), as a view: the
+        leaf's shape (replicated) or, for a sharded leaf, its shape with
+        dim k split into (T, n) or, when wide, (T, D, n) — a strided view
+        of T (T·D) runs, which :meth:`split` of the full leaf matches."""
+        leaf = self.leaves[i]
+        if leaf.dim is None:
+            a = self.n_shards * self.block + leaf.offset
+            return row[a:a + leaf.size].view(leaf.shape)
+        k, parts = leaf.dim, self._parts(leaf)
+        piece = list(leaf.shape)
+        piece[k] //= math.prod(parts)
+        st = _row_major(piece)
+        jumps = (self.block, self.wide) if leaf.wide else (self.block,)
+        size = leaf.shape[:k] + parts + (piece[k],) + leaf.shape[k + 1:]
+        stride = st[:k] + jumps + (st[k],) + st[k + 1:]
+        base = leaf.offset if leaf.wide else (self.n_data * self.wide
+                                              + leaf.offset)
+        return row.as_strided(size, stride, row.storage_offset() + base)
+
+    def split(self, i, x):
+        """The full leaf ``x`` viewed in :meth:`columns`' shape."""
+        leaf = self.leaves[i]
+        if leaf.dim is None:
+            return x
+        parts = self._parts(leaf)
+        return x.unflatten(leaf.dim, parts + (
+            leaf.shape[leaf.dim] // math.prod(parts),))
+
+    def local(self, i, wide, narrow, replicated):
+        """Leaf i's part of a rank's reduced buffers, as a view shaped
+        like its moments' piece: ``wide`` (its run of wide pieces),
+        ``narrow`` (its other slices) or ``replicated``."""
+        leaf = self.leaves[i]
+        src = (replicated if leaf.dim is None
+               else wide if leaf.wide else narrow)
+        shape = self.slice_shape(i, moments=True)
+        return src[leaf.offset:leaf.offset + math.prod(shape)].view(shape)
+
+    def axes(self, i, model_axis, moments=False):
+        """Leaf i's (dim, mesh axes), or None when replicated: the
+        reference's ``state_shardings`` spec."""
+        leaf = self.leaves[i]
+        if leaf.dim is None:
+            return None
+        if moments and leaf.wide:
+            return leaf.dim, (model_axis, "data")
+        return leaf.dim, (model_axis,)
+
+
+def shard_plan(tree, lay: Layout, *, zero1: bool = False,
+               stacked_paths: Sequence[str] = ()) -> ShardPlan:
+    """The :class:`ShardPlan` of a parameter tree (any leaves with a
+    ``shape``: tensors, the meta device's, JAX's shape structs) under
+    ``lay``: :func:`placement`'s dims, and with ``zero1`` the reference's
+    ``widen`` rule (the moments of a leaf sharded on dim k also split
+    over "data" where T·D divides dim k).  Under LOCAL or a layout without
+    a model axis every leaf is replicated.  The reference cannot place
+    zero1's moments where the model axis is "data" itself (a spec names
+    an axis once); that raises ``ValueError`` here too."""
+    dims = tree_leaves(placement(tree, lay, stacked_paths=stacked_paths))
+    shapes = [tuple(int(n) for n in x.shape) for x in tree_leaves(tree)]
+    mesh, m = lay.mesh, lay.model_axis
+    T = lay.n_shards
+    D = (mesh.shape["data"] if zero1 and mesh is not None
+         and "data" in lay.dp else 1)
+    leaves, runs = [], {"wide": 0, "narrow": 0, "replicated": 0}
+    for path, shape, k in zip(_leaf_paths(tree), shapes, dims):
+        wide = (zero1 and mesh is not None and k is not None
+                and shape[k] % (T * D) == 0)
+        if wide and m == "data":
+            raise ValueError(
+                f"zero1 under {lay.mode} on {dict(mesh.shape)}: the moments "
+                f"of {path!r} would split over ('data', 'data'); the model "
+                f"axis is 'data' itself (the reference's NamedSharding "
+                f"refuses a spec that names an axis twice)")
+        run = ("replicated" if k is None else "wide" if wide else "narrow")
+        leaves.append(LeafPlan(path, shape, k, bool(wide), runs[run]))
+        n = math.prod(shape)
+        runs[run] += (n if k is None else n // (T * D) if wide else n // T)
+    index = getattr(mesh, "index", None)
+    s = index((m,)) if callable(index) and m is not None else 0
+    d = index(("data",)) if callable(index) and D > 1 else 0
+    return ShardPlan(tuple(leaves), T, D, int(s), int(d), runs["wide"],
+                     runs["narrow"], runs["replicated"], bool(zero1))
+
+
+# ---------------------------------------------------------------------------
+# Use sites: the weights' gather, the block remat, the activation rule.
+# ---------------------------------------------------------------------------
+
+
+_gather_var: contextvars.ContextVar[Optional[Callable]] = (
+    contextvars.ContextVar("repro_torch_gather", default=None))
+
+
+@contextlib.contextmanager
+def gathering(fn: Callable):
+    """Install ``fn`` (tree -> the tree with its ZeRO-3 shards gathered)
+    as :func:`use_weight`'s gather; a ZeRO-3 train step installs its
+    ``dist.collectives.Zero3`` session around its forward and backward."""
+    tok = _gather_var.set(fn)
+    try:
+        yield fn
+    finally:
+        _gather_var.reset(tok)
+
+
+def use_weight(tree):
+    """The reference's use-site gather of ZeRO-3-sharded weights: ``tree``
+    with every shard the active gather knows replaced by its full weight,
+    all of them in one gather (one collective a block).  The identity
+    when no gather is active (LOCAL, pure data parallelism, serving) and
+    for leaves that are not shards (already gathered, or replicated)."""
+    fn = _gather_var.get()
+    return tree if fn is None else fn(tree)
+
+
+def remat(fn, *args):
+    """``fn(*args)``; while a gather is active, under activation
+    checkpointing: the block's gathered weights and activations go after
+    its forward and are made again, the gather included, in the backward,
+    so a rank holds one or two blocks gathered at a time (the reference
+    rematerializes each layer too).  The recompute runs in a copy of the
+    caller's context variables (the gather, the layout, the knobs): the
+    backward may run on another thread."""
+    if _gather_var.get() is None:
+        return fn(*args)
+    snap = contextvars.copy_context()
+
+    def run(*a):
+        return snap.copy().run(fn, *a)
+
+    return checkpoint(run, *args, use_reentrant=False)
+
+
+def act(x, dp=None, sp=None, tp=None):
+    """The reference's activation constraint on dims (batch, seq,
+    feature).  The identity under LOCAL and ``train_fsdp``: each rank
+    already holds only its own batch rows, whole, which is what the
+    constraint asks there.  ``train_sp`` and ``decode_tp`` split the
+    sequence or the features across ranks: they raise by name."""
+    lay = layout()
+    if lay.mesh is not None:
+        require_data_parallel(lay, "an activation constraint")
+    return x

@@ -64,23 +64,50 @@ class WorkerGrads:
     concatenation copy.  :meth:`aggregate` runs the masked mean once over
     the whole buffer and splits it back into a tree, each leaf cast to its
     parameter's dtype (f32 leaves are views of the result).
+
+    With a ``plan`` (a ``dist.sharding.ShardPlan``, ZeRO-3) the columns
+    are the plan's shard-major order and ``like`` holds this rank's
+    slices: ``rows[w][i]`` is leaf i's columns (``plan.columns``: for a
+    sharded leaf a strided view of its T slices, on a dim after 0 too),
+    and ``fit(i, g)`` views the FULL gradient of leaf i in that shape, so
+    ``rows[w][i].copy_(fit(i, g))`` writes each slice into its shard's
+    block.  The kernel adds each column over W in the same order wherever
+    the column lies, so the sum over the buffer is the natural-order
+    sum's, permuted, bit for bit; ``dist.collectives`` reduce-scatters it.
     """
 
-    def __init__(self, like, n_workers: int, device=None):
+    def __init__(self, like, n_workers: int, device=None, plan=None):
         flat = tree.leaves(like)
         self.like = like
-        self.shapes = [tuple(x.shape) for x in flat]
+        self.plan = plan
         self.dtypes = [x.dtype for x in flat]
-        sizes = [int(np.prod(s, dtype=np.int64)) for s in self.shapes]
-        self.offsets = np.concatenate([[0], np.cumsum(sizes)]).tolist()
         device = flat[0].device if device is None else device
-        self.buf = torch.empty((n_workers, self.offsets[-1]),
-                               dtype=torch.float32, device=device)
+        if plan is None:
+            self.shapes = [tuple(x.shape) for x in flat]
+            sizes = [int(np.prod(s, dtype=np.int64)) for s in self.shapes]
+            self.offsets = np.concatenate([[0], np.cumsum(sizes)]).tolist()
+            n = self.offsets[-1]
+        else:
+            if len(plan.leaves) != len(flat):
+                raise ValueError(f"WorkerGrads: {len(flat)} leaves, the "
+                                 f"plan has {len(plan.leaves)}")
+            self.shapes = [leaf.shape for leaf in plan.leaves]
+            n = plan.size
+        self.buf = torch.empty((n_workers, n), dtype=torch.float32,
+                               device=device)
         self.rows = [self._split(self.buf[w]) for w in range(n_workers)]
 
     def _split(self, flat_row):
+        if self.plan is not None:
+            return [self.plan.columns(i, flat_row)
+                    for i in range(len(self.shapes))]
         return [flat_row[a:b].view(s) for a, b, s in
                 zip(self.offsets[:-1], self.offsets[1:], self.shapes)]
+
+    def fit(self, i, g):
+        """Leaf i's full gradient ``g`` viewed in ``rows[w][i]``'s
+        shape."""
+        return g if self.plan is None else self.plan.split(i, g)
 
     @classmethod
     def of_stacked(cls, grads):
@@ -97,6 +124,9 @@ class WorkerGrads:
     def unflatten(self, flat):
         """An (N,) f32 result -> a tree like the parameters, each leaf cast
         to its parameter's dtype (f32 leaves are views of ``flat``)."""
+        if self.plan is not None:
+            raise ValueError("a plan's buffer is shard-major: its sums go "
+                             "through dist.collectives.Zero3.reduce")
         parts = [x.to(dt) for x, dt in zip(self._split(flat), self.dtypes)]
         return tree.unflatten(self.like, parts)
 

@@ -25,6 +25,15 @@ the psum path combines the rank's (W/R, N) buffer in the kernel's sum
 mode, all-reduces it and divides (``core.aggregation.masked_psum_mean``).
 The reported loss, ce and aux are the global ones.
 
+Under a ZeRO-3 layout (``train_fsdp`` with a model axis, the reference's
+FSDP) the state is this rank's shards (``shard_state``; ``state_shardings``
+gives each leaf's dim and mesh axes, the reference's): each block's
+weights are gathered where it runs, the full gradients fill the rows of a
+shard-major buffer (``dist.sharding.ShardPlan``), whose one sum-mode
+kernel pass is reduce-scattered over the model axis and summed over the
+other dp axes (``dist.collectives.Zero3``), and the optimizer updates the
+shards; with ``zero1`` the moments are also split over "data".
+
 The update is the optimizer's: with ``optim.adamw(..., fused=True)`` one
 Hopper ``fused_adam`` launch updates every parameter and both moments in
 place, the port's counterpart of the JAX step's donated state.
@@ -147,15 +156,24 @@ def _dp(lay) -> Optional[_DP]:
                mesh.group(axes))
 
 
-def _value_and_grad(loss_fn, params, batch, norm):
+def _value_and_grad(loss_fn, params, batch, norm, z=None):
     """(loss, metrics, grads as a list in ``tree.leaves`` order).  The
     params stay plain tensors: the gradient is taken w.r.t. detached
-    aliases of them."""
-    flat = [p.detach().requires_grad_(True) for p in tree.leaves(params)]
-    loss, metrics = loss_fn(tree.unflatten(params, flat), batch, norm)
-    grads = torch.autograd.grad(loss, flat, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
-             for p, g in zip(flat, grads)]
+    aliases of them.  Under ZeRO-3 (``z``, a ``dist.collectives.Zero3``)
+    the params are this rank's slices, gathered at their use sites, and
+    the gradients are the FULL ones."""
+    if z is None:
+        flat = [p.detach().requires_grad_(True)
+                for p in tree.leaves(params)]
+        loss, metrics = loss_fn(tree.unflatten(params, flat), batch, norm)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    else:
+        with z.session(tree.leaves(params)) as (inputs, flat):
+            loss, metrics = loss_fn(tree.unflatten(params, inputs), batch,
+                                    norm)
+            grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    grads = [torch.zeros(p.shape, dtype=p.dtype, device=p.device)
+             if g is None else g for p, g in zip(flat, grads)]
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             grads)
 
@@ -163,7 +181,8 @@ def _value_and_grad(loss_fn, params, batch, norm):
 def make_train_step(cfg, optimizer: optim.Optimizer, *,
                     grad_accum: int = 1, aux_coef: float = 0.01,
                     compress_pod_grads: bool = False,
-                    mask_agg: str = "weights", stale_reuse: bool = False):
+                    mask_agg: str = "weights", stale_reuse: bool = False,
+                    zero1: bool = False):
     """Returns train_step(state, batch) -> (state, metrics).
 
     state = {"params", "opt"[, "ef"]}; batch holds numpy arrays
@@ -223,6 +242,25 @@ def make_train_step(cfg, optimizer: optim.Optimizer, *,
     the one-process step's.  The weights path of an MoE arch raises there:
     its auxiliary loss is a function of the whole batch's routing, which no
     sum of the ranks' gives.
+
+    Under a ZeRO-3 layout (``dist.sharding.is_zero3``: ``train_fsdp`` with
+    a model axis, of any size) ``state`` is this rank's shards
+    (:func:`shard_state` with the same ``zero1``): the plan is the
+    config's tree's (``dist.sharding.shard_plan``).  The forward gathers
+    each block's weights where it runs and again in its backward; each
+    worker's full gradient fills its row of the shard-major (W/R, N)
+    buffer, and the rank's ONE sum-mode kernel pass is reduce-scattered
+    over the model axis, summed over the other dp axes (zero1: a
+    reduce-scatter over "data") and divided (``collectives.Zero3``); the
+    weights path writes its gradient into a one-row buffer of the same
+    layout and reduces it alike.  The optimizer then updates the rank's
+    shards (the fused Adam: one launch over them; zero1: over its pieces,
+    all-gathered over "data" after).  Grad accumulation, anytime
+    fractions and stale reuse run on the shards (``train_step.zeros_grad``
+    gives stale reuse's zero buffer in the gradient's layout), and so does
+    compression, whose per-leaf scales are the full leaves' (a max over
+    the model axis) — except under zero1, where it raises: its residuals
+    take the parameters' sharding, zero1's gradient the moments'.
     """
     if mask_agg not in MASK_AGG_MODES:
         raise ValueError(f"unknown mask_agg {mask_agg!r} "
@@ -234,6 +272,8 @@ def make_train_step(cfg, optimizer: optim.Optimizer, *,
             "dropped worker's gradient to buffer)")
     loss_fn = make_loss_fn(cfg, aux_coef)
     buffers: Dict[Any, ops.WorkerGrads] = {}
+    weights_bufs: Dict[Any, ops.WorkerGrads] = {}  # ZeRO-3's one-row
+    plans: Dict[Any, shd.ShardPlan] = {}
     flat_sums: Dict[Any, torch.Tensor] = {}   # (dtype, device) -> (n,)
     holders: Dict[int, int] = {}      # id(trainer) -> the width it steps at
 
@@ -246,13 +286,52 @@ def make_train_step(cfg, optimizer: optim.Optimizer, *,
             return float(B * S * R)
         return torch.clamp(torch.sum(w.float()) * S, min=1e-6)
 
-    def accumulate(params, micro, norm, weights, rows):
+    def plan_for(lay):
+        """The ZeRO-3 shard plan of the config's tree under ``lay``, or
+        None when ``lay`` is not a ZeRO-3 layout."""
+        if not shd.is_zero3(lay):
+            return None
+        if lay not in plans:
+            plans[lay] = shd.shard_plan(
+                M.init_model(cfg, None, device="meta"), lay, zero1=zero1)
+        return plans[lay]
+
+    def zero3_of(lay):
+        plan = plan_for(lay)
+        if plan is None:
+            return None
+        if compress_pod_grads and zero1:
+            raise NotImplementedError(
+                "error-feedback compression under zero1: its residuals take "
+                "the parameters' sharding (state_shardings' 'ef'), zero1's "
+                "gradient the moments' pieces; build the step without zero1 "
+                "or without compress_pod_grads (ROADMAP C.23)")
+        return collectives.Zero3.of(lay, plan)
+
+    def zeros_grad(params):
+        """Zeros in the layout of the step's aggregated gradient (stale
+        reuse's first buffer): the params' own, or under ZeRO-3 each
+        leaf's moments' shape."""
+        plan = plan_for(shd.layout())
+        if plan is None:
+            return tree.map(torch.zeros_like, params)
+        flat = tree.leaves(params)
+        return tree.unflatten(params, [
+            torch.zeros(plan.slice_shape(i, moments=True), dtype=p.dtype,
+                        device=p.device) for i, p in enumerate(flat)])
+
+    def accumulate(params, micro, norm, weights, rows, fit=None, z=None):
         """Sum of weight x gradient over the microbatches into the f32
         ``rows`` (the first written, the rest added), and the weighted sums
-        of loss, ce and aux.  Weights are the host floats 1.0 or 0.0."""
+        of loss, ce and aux.  Weights are the host floats 1.0 or 0.0.
+        ``fit(i, g)`` views leaf i's gradient in its row's shape (a plan's
+        strided columns); ``z`` runs the forward and backward under
+        ZeRO-3."""
         loss = ce = aux = 0.0
         for j, (mb, wj) in enumerate(zip(micro, weights)):
-            l_mb, metrics, g = _value_and_grad(loss_fn, params, mb, norm)
+            l_mb, metrics, g = _value_and_grad(loss_fn, params, mb, norm, z)
+            if fit is not None:
+                g = [fit(i, x) for i, x in enumerate(g)]
             for row, x in zip(rows, g):
                 if j == 0:
                     row.copy_(x)
@@ -265,16 +344,19 @@ def make_train_step(cfg, optimizer: optim.Optimizer, *,
             aux = aux + metrics["aux"] * wj
         return loss, ce, aux
 
-    def grads_of(params, batch, norm):
+    def grads_of(params, batch, norm, z=None):
         if grad_accum == 1:
-            return _value_and_grad(loss_fn, params, batch, norm)
-        rows = [torch.empty(p.shape, dtype=torch.float32, device=p.device)
-                for p in tree.leaves(params)]
+            return _value_and_grad(loss_fn, params, batch, norm, z)
+        shapes = ([p.shape for p in tree.leaves(params)] if z is None
+                  else [leaf.shape for leaf in z.plan.leaves])
+        dev = tree.leaves(params)[0].device
+        rows = [torch.empty(sh, dtype=torch.float32, device=dev)
+                for sh in shapes]
         loss, _, aux = accumulate(params, _split(batch, grad_accum), norm,
-                                  [1.0] * grad_accum, rows)
+                                  [1.0] * grad_accum, rows, z=z)
         return loss, {"ce": loss, "aux": aux / grad_accum}, rows
 
-    def worker_buffer(params, W):
+    def worker_buffer(params, W, plan=None):
         # a width that is neither this call's nor held by a trainer
         # (``train_step.hold``) loses its buffer BEFORE a new one is
         # allocated: a single job's resize frees the old width's buffer
@@ -283,9 +365,10 @@ def make_train_step(cfg, optimizer: optim.Optimizer, *,
         keep = set(holders.values()) | {W}
         for k in [k for k in buffers if k[0] not in keep]:
             del buffers[k]
-        key = (W, tree.leaves(params)[0].device)
+        key = (W, tree.leaves(params)[0].device, plan)
         if key not in buffers:
-            buffers[key] = ops.WorkerGrads(params, W)
+            buffers[key] = (ops.WorkerGrads(params, W) if plan is None
+                            else ops.WorkerGrads(params, W, plan=plan))
         return buffers[key]
 
     def hold(owner, W: int):
@@ -347,7 +430,7 @@ def make_train_step(cfg, optimizer: optim.Optimizer, *,
         dist.all_reduce(both, op=dist.ReduceOp.SUM, group=dp.group)
         return list(both.unbind())
 
-    def weights_grads_of(params, batch, dp):
+    def weights_grads_of(params, batch, dp, z=None):
         if dp is None:
             return grads_of(params, batch, normalizer_of(batch))
         R, r = dp.size, dp.index
@@ -365,13 +448,26 @@ def make_train_step(cfg, optimizer: optim.Optimizer, *,
         norm = normalizer_of(batch, R)
         if w is not None:
             batch = dict(batch, weights=w[r * b:(r + 1) * b])
-        loss, metrics, grads = grads_of(params, batch, norm)
+        loss, metrics, grads = grads_of(params, batch, norm, z)
         loss, ce, aux = metric_sums([loss, metrics["ce"], metrics["aux"]],
                                     dp)
-        return loss, {"ce": ce, "aux": aux}, all_reduce_grads(grads,
-                                                              dp.group)
+        if z is None:
+            return loss, {"ce": ce, "aux": aux}, all_reduce_grads(
+                grads, dp.group)
+        # the rank's gradient in the shard-major layout, then the same
+        # reduce-scatter and sums as the psum path's (no division: the
+        # normalizer is the global one)
+        key = (tree.leaves(params)[0].device, z.plan)
+        if key not in weights_bufs:
+            weights_bufs.clear()
+            weights_bufs[key] = ops.WorkerGrads(params, 1, plan=z.plan)
+        buf = weights_bufs[key]
+        for i, (row, g) in enumerate(zip(buf.rows[0], grads)):
+            row.copy_(buf.fit(i, g))
+        return loss, {"ce": ce, "aux": aux}, z.as_tree(
+            params, z.reduce(buf.buf[0]))
 
-    def psum_grads_of(params, batch, dp, stale_in=None):
+    def psum_grads_of(params, batch, dp, stale_in=None, z=None):
         mask = batch["mask"]
         data = {k: v for k, v in batch.items() if k != "mask"}
         B, S = data["tokens"].shape
@@ -383,7 +479,7 @@ def make_train_step(cfg, optimizer: optim.Optimizer, *,
         local = mask[r * W:(r + 1) * W]
         base_norm = np.float32((B // W) * S)
         done = torch.round(local * grad_accum).tolist()
-        buf = worker_buffer(params, W)
+        buf = worker_buffer(params, W, None if z is None else z.plan)
         losses, ces, auxs = [], [], []
         for w, wbatch in enumerate(_split(data, W)):
             f = np.float32(local[w].item())
@@ -393,7 +489,9 @@ def make_train_step(cfg, optimizer: optim.Optimizer, *,
             weights = [1.0 if j < done[w] else 0.0
                        for j in range(grad_accum)]
             loss, ce, aux = accumulate(params, _split(wbatch, grad_accum),
-                                       norm, weights, buf.rows[w])
+                                       norm, weights, buf.rows[w],
+                                       buf.fit if z is not None else None,
+                                       z)
             if grad_accum > 1:
                 ce, aux = loss, aux / grad_accum
             losses.append(loss)
@@ -427,29 +525,135 @@ def make_train_step(cfg, optimizer: optim.Optimizer, *,
                 "a stale_reuse step folds batch['stale_g'] with weight "
                 "batch['stale_w']: drive it with a StaleReuseController")
         batch = _device_batch(batch, tree.leaves(params)[0].device)
-        dp = _dp(shd.layout())
+        lay = shd.layout()
+        dp = _dp(lay)
+        z = zero3_of(lay)
         if mask_agg == "psum":
             loss, metrics, grads, stale = psum_grads_of(params, batch, dp,
-                                                        stale_in)
-        else:
+                                                        stale_in, z)
+        elif z is None:
             loss, metrics, flat = weights_grads_of(params, batch, dp)
             grads = tree.unflatten(params, flat)
+        else:
+            loss, metrics, grads = weights_grads_of(params, batch, dp, z)
         if compress_pod_grads:
-            grads, ef = optim.error_feedback_compress(grads,
-                                                      state.get("ef"))
-        ups, opt = optimizer.update(grads, state["opt"], params)
-        params = optim.apply_updates(params, ups)
+            grads, ef = optim.error_feedback_compress(
+                grads, state.get("ef"),
+                reduce_max=None if z is None else z.max_over_model)
+        if z is None:
+            ups, opt = optimizer.update(grads, state["opt"], params)
+            params = optim.apply_updates(params, ups)
+            gnorm = optim.global_norm(grads)
+        else:
+            params, opt = z.update(optimizer, grads, state["opt"], params)
+            gnorm = z.global_norm(grads)
         new_state = {"params": params, "opt": opt}
         if compress_pod_grads:
             new_state["ef"] = ef
-        metrics = dict(metrics, loss=loss, gnorm=optim.global_norm(grads))
+        metrics = dict(metrics, loss=loss, gnorm=gnorm)
         if stale_reuse:
             metrics["stale"] = stale
         return new_state, metrics
 
     train_step.hold = hold
     train_step.buffers = buffers
+    train_step.plan_for = plan_for
+    train_step.zeros_grad = zeros_grad
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# The ZeRO-3 train state: placement, shards, gathers.
+# ---------------------------------------------------------------------------
+
+
+def state_shardings(cfg, params, lay, *, zero1: bool = False,
+                    has_ef: bool = False):
+    """Each leaf's (dim, mesh axes) of the train state under ``lay``, or
+    None where it is replicated: the reference's ``state_shardings`` spec
+    for ``{"params", "opt": {"step", "m", "v", "mu"}[, "ef"]}``.  The
+    params are ZeRO-3 over the model axis (``dist.sharding.placement``);
+    with ``zero1`` the moments of a leaf sharded on dim k are sharded on
+    it over (model, "data") where T·D divides it (the reference's
+    ``widen``).  ``params`` is the full tree (any leaves with a shape;
+    the port keeps one dict a layer, so nothing is stacked)."""
+    del cfg   # the port's trees carry no scan-stacked leaves
+    plan = shd.shard_plan(params, lay, zero1=zero1)
+    m = lay.model_axis
+
+    def spec(moments):
+        return tree.unflatten(params, [plan.axes(i, m, moments)
+                                       for i in range(len(plan.leaves))])
+
+    mom = spec(True)
+    out = {"params": spec(False),
+           "opt": {"step": None, "m": mom, "v": mom, "mu": mom}}
+    if has_ef:
+        out["ef"] = spec(False)
+    return out
+
+
+def _state_parts(state):
+    """(name, subtree, moments?) of a train state's trees: the params and
+    ``ef`` (the params' sharding), the optimizer's moment trees (``m``,
+    ``v``, ``mu``: the moments'), anything else (``step``) whole."""
+    parts = [("params", state["params"], False)]
+    for k, v in state.get("opt", {}).items():
+        if k in ("m", "v", "mu"):
+            parts.append((("opt", k), v, True))
+    if "ef" in state:
+        parts.append(("ef", state["ef"], False))
+    return parts
+
+
+def _with_parts(state, new):
+    out = dict(state)
+    out["opt"] = dict(state.get("opt", {}))
+    for key, v in new.items():
+        if isinstance(key, tuple):
+            out[key[0]][key[1]] = v
+        else:
+            out[key] = v
+    return out
+
+
+def shard_tree(t, plan: shd.ShardPlan, *, moments: bool = False,
+               device=None):
+    """A full tree -> this rank's slice of each leaf (``moments``: its
+    moments' piece under zero1), copied out so that the full tree can
+    go, on ``device`` (default: the leaf's own)."""
+    flat = tree.leaves(t)
+    if len(flat) != len(plan.leaves):
+        raise ValueError(f"shard_tree: {len(flat)} leaves, the plan has "
+                         f"{len(plan.leaves)}")
+    out = []
+    for i, x in enumerate(flat):
+        if tuple(x.shape) != plan.leaves[i].shape:
+            raise ValueError(f"shard_tree: leaf {plan.leaves[i].path!r} is "
+                             f"{tuple(x.shape)}, the plan's full leaf "
+                             f"{plan.leaves[i].shape}")
+        part = plan.slice_of(i, x, moments)
+        dev = x.device if device is None else torch.device(device)
+        out.append(torch.empty(part.shape, dtype=x.dtype,
+                               device=dev).copy_(part))
+    return tree.unflatten(t, out)
+
+
+def shard_state(state, plan: shd.ShardPlan, device=None):
+    """A full train state -> this rank's shards under ``plan``: the
+    params' and ``ef``'s slices, the moments' pieces (:func:`shard_tree`);
+    ``step`` as it is."""
+    return _with_parts(state, {
+        k: shard_tree(v, plan, moments=mom, device=device)
+        for k, v, mom in _state_parts(state)})
+
+
+def gather_state(state, plan: shd.ShardPlan, lay):
+    """This rank's shards of a train state -> the full state, on every
+    rank (a collective: every rank calls it)."""
+    z = collectives.Zero3.of(lay, plan)
+    return _with_parts(state, {k: z.gather_tree(v, moments=mom)
+                               for k, v, mom in _state_parts(state)})
 
 
 def clock_to_loss(history, target: float, window: int = 3):
@@ -537,6 +741,15 @@ class Trainer:
     workers' microbatches), and they use it as sent.  The lead rank
     writes the checkpoints; every rank reads them.  :meth:`resize`
     raises: a change of width is a change of mesh.
+
+    Under a ZeRO-3 layout (a ``step_fn`` from :func:`make_train_step`,
+    whose ``plan_for`` gives the layout's shard plan) the state is held as
+    this rank's shards: :meth:`restore_or_init` shards the full state that
+    ``init_state_fn`` returns (``weights.from_jax``'s, say) or that a
+    checkpoint holds, and at a checkpoint step every rank gathers the
+    state (and the stale buffer), which the lead rank writes: the same
+    files as the one-process trainer's, loadable either way.  ``eval_fn``
+    gets the shards.
     """
     step_fn: Callable
     data: Any
@@ -568,6 +781,11 @@ class Trainer:
             return self._decay_seen
         return getattr(self.controller, "stale_decay", None)
 
+    def _plan(self):
+        """The active layout's ZeRO-3 shard plan, or None."""
+        plan_for = getattr(self.step_fn, "plan_for", None)
+        return plan_for(shd.layout()) if plan_for is not None else None
+
     def restore_or_init(self, init_state_fn):
         """Restore from the newest VALID checkpoint, else init cold.
 
@@ -576,13 +794,16 @@ class Trainer:
         manifest) is skipped and the previous one is used.  The state is
         restored onto the devices and into the dtypes of
         ``init_state_fn()``'s tree; the controller (and, under stale
-        reuse, the stale buffer) from the SAME step.
+        reuse, the stale buffer) from the SAME step.  Under ZeRO-3 the
+        full state (restored, or ``init_state_fn()``'s) is then cut into
+        this rank's shards.
         """
         if self.members is None:
             self.members = np.arange(self.n_workers)
         steps = (list(reversed(store.list_steps(self.ckpt_dir)))
                  if self.ckpt_dir else [])
         example = init_state_fn()
+        plan = self._plan()
         for step in steps:
             try:
                 want = {"state": example,
@@ -608,13 +829,20 @@ class Trainer:
                 if stale:
                     self._stale = (restored["stale"]["g"],
                                    restored["stale"]["count"])
+                if plan is not None:
+                    self.state = shard_state(self.state, plan)
+                    if stale:
+                        self._stale = (shard_tree(self._stale[0], plan,
+                                                  moments=True),
+                                       self._stale[1])
                 if self.controller is not None:
                     self._restore_controller(step)
                 return self
             except store.CheckpointError as e:
                 print(f"checkpoint step {step} unusable ({e}); "
                       f"falling back to the previous step")
-        self.state = example
+        self.state = (example if plan is None
+                      else shard_state(example, plan))
         return self
 
     def _restore_controller(self, step):
@@ -735,7 +963,11 @@ class Trainer:
                 "buffer)")
         if self._stale is None:
             params = self.state["params"]
-            self._stale = (tree.map(torch.zeros_like, params),
+            # zeros in the aggregated gradient's layout (under ZeRO-3 the
+            # moments' shapes)
+            zeros = getattr(self.step_fn, "zeros_grad", None)
+            self._stale = ((zeros or (lambda t: tree.map(torch.zeros_like,
+                                                         t)))(params),
                            torch.zeros((), dtype=torch.float32,
                                        device=tree.leaves(params)[0].device))
         stale_g, stale_d = self._stale
@@ -886,12 +1118,24 @@ class Trainer:
             print(f"  step {self.step}: loss={rec['loss']:.4f} "
                   f"c={c}/{n} t={iter_time:.3f}s "
                   f"clock={self.sim_clock:.1f}s")
-        if ckpt and self.step % self.ckpt_every == 0:
-            groups = {"state": self.state,
-                      "meta": {"step": self.step,
-                               "clock": self.sim_clock},
-                      "ctl": self._controller_ckpt()}
-            if decay is not None:
-                groups["stale"] = {"g": self._stale[0],
-                                   "count": self._stale[1]}
-            ckpt.save(self.step, groups)
+        plan = self._plan() if self.ckpt_dir else None
+        if ((ckpt or plan is not None)
+                and self.step % self.ckpt_every == 0):
+            state, stale_g = self.state, (self._stale[0] if decay is not None
+                                          else None)
+            if plan is not None:
+                # every rank takes part in the gathers; the lead writes
+                lay = shd.layout()
+                state = gather_state(state, plan, lay)
+                if stale_g is not None:
+                    stale_g = collectives.Zero3.of(lay, plan).gather_tree(
+                        stale_g, moments=True)
+            if ckpt:
+                groups = {"state": state,
+                          "meta": {"step": self.step,
+                                   "clock": self.sim_clock},
+                          "ctl": self._controller_ckpt()}
+                if decay is not None:
+                    groups["stale"] = {"g": stale_g,
+                                       "count": self._stale[1]}
+                ckpt.save(self.step, groups)

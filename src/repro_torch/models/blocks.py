@@ -31,6 +31,7 @@ from typing import Any, NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import sharding as shd
 from repro_torch.kernels import ops
 from repro_torch.kernels.mlstm_plain import ScanState
 from repro_torch.models import attention as A
@@ -268,6 +269,11 @@ def block_forward(cfg, spec: LayerSpec, p, x, ctx: Ctx, cache):
     ``attn_moe``, None for every other kind (a model of other kinds makes
     no zero tensor a layer)."""
     aux = None
+    # the block's ZeRO-3 shards, gathered in one collective (the identity
+    # outside a ZeRO-3 step): the reference's use sites of attn, cross,
+    # mamba, the mLSTM and sLSTM weights, the MLP and the shared experts
+    # all lie in this block
+    p = shd.use_weight(p)
     if spec.kind == "mlstm":
         x, cache = _mlstm_block(cfg, p, x, ctx, cache)
     elif spec.kind == "slstm":

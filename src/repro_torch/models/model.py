@@ -9,6 +9,14 @@ layer (``params["layers"]``; whisper's encoder ``params["encoder"]
 
 Parameters are plain dicts of tensors in the JAX layout: a dense weight is
 ``(d_in, d_out)`` and applied as ``x @ w``.
+
+Under a ZeRO-3 train step (``dist.sharding.use_weight``) the parameters
+are this rank's slices: every block's weights are gathered where the
+block runs (``block_forward``), the embedding, head, final norms and
+position tables where they are used, and each block runs under
+``dist.sharding.remat``, so its gathered weights are gathered again in
+the backward instead of kept.  Outside one every use site is the
+identity.
 """
 from __future__ import annotations
 
@@ -235,7 +243,7 @@ def embed_tokens(cfg, params, tokens, batch=None):
     """Token embeddings; where ``batch`` carries ``patch_embeds`` (B, S,
     D), the rows its ``image_mask`` (B, S) sets take them instead, cast to
     the embeddings' dtype (qwen2-vl's stubbed vision frontend)."""
-    x = F.embedding(tokens, params["embed"]["table"])
+    x = F.embedding(tokens, shd.use_weight(params["embed"])["table"])
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     if batch is not None and "patch_embeds" in batch:
@@ -246,8 +254,9 @@ def embed_tokens(cfg, params, tokens, batch=None):
 
 def lm_logits(cfg, params, x):
     if cfg.tie_embeddings:
-        return x @ params["embed"]["table"].T.to(x.dtype)   # (V, D)
-    return x @ params["lm_head"]["w"].to(x.dtype)            # (D, V)
+        w = shd.use_weight(params["embed"])["table"]          # (V, D)
+        return x @ w.T.to(x.dtype)
+    return x @ shd.use_weight(params["lm_head"])["w"].to(x.dtype)  # (D, V)
 
 
 # ---------------------------------------------------------------------------
@@ -285,13 +294,14 @@ def _run_encoder(cfg, params, frames):
     cast to the config's dtype: learned positions, non-causal blocks in
     train mode (no caches), the final norm."""
     enc = params["encoder"]
-    x = frames.to(_dtype(cfg)) + enc["pos_table"][:frames.shape[1]]
+    pos_table = shd.use_weight(enc["pos_table"])
+    x = frames.to(_dtype(cfg)) + pos_table[:frames.shape[1]]
     B, Se = frames.shape[:2]
     ctx = Ctx(mode="train", positions=torch.arange(
         Se, device=frames.device).expand(B, Se))
     for spec, p in zip(encoder_layer_specs(cfg), enc["layers"]):
-        x, _, _ = block_forward(cfg, spec, p, x, ctx, None)
-    return L.apply_norm(cfg, enc["final_norm"], x)
+        x, _, _ = shd.remat(block_forward, cfg, spec, p, x, ctx, None)
+    return L.apply_norm(cfg, shd.use_weight(enc["final_norm"]), x)
 
 
 def forward(cfg, params, batch, mode: str = "train", caches=None,
@@ -328,11 +338,12 @@ def forward(cfg, params, batch, mode: str = "train", caches=None,
     positions = batch["positions"]
     if mode != "decode":
         check_positions(positions)
-    x = embed_tokens(cfg, params, batch["tokens"], batch)
+    x = shd.act(embed_tokens(cfg, params, batch["tokens"], batch),
+                "dp", "sp", None)
     encoder_out = None
     if cfg.is_encoder_decoder:
         qpos = positions[0] if positions.dim() == 3 else positions
-        x = x + params["dec_pos_table"][qpos]
+        x = x + shd.use_weight(params["dec_pos_table"])[qpos]
         if mode != "decode":
             encoder_out = _run_encoder(cfg, params, batch["frames"])
     if mode == "decode":
@@ -342,12 +353,12 @@ def forward(cfg, params, batch, mode: str = "train", caches=None,
     new_caches = []
     aux = x.new_zeros((), dtype=torch.float32)
     for i, (spec, p) in enumerate(zip(layer_specs(cfg), params["layers"])):
-        x, c, a = block_forward(cfg, spec, p, x, ctx,
-                                caches[i] if caches is not None else None)
+        x, c, a = shd.remat(block_forward, cfg, spec, p, x, ctx,
+                            caches[i] if caches is not None else None)
         if a is not None:
             aux = aux + a
         new_caches.append(c)
-    x = L.apply_norm(cfg, params["final_norm"], x)
+    x = L.apply_norm(cfg, shd.use_weight(params["final_norm"]), x)
     if not head:
         return x, None if mode == "train" else new_caches, aux
     if mode == "prefill":
@@ -387,8 +398,8 @@ def chunked_ce_sum(cfg, params, x, labels, weights, vchunk: int):
     computes the dense CE's value, ROADMAP C.21.)
     """
     # tied: the (V, D) embedding rows; else the (D, V) lm_head
-    w = (params["embed"]["table"] if cfg.tie_embeddings
-         else params["lm_head"]["w"])
+    w = (shd.use_weight(params["embed"])["table"] if cfg.tie_embeddings
+         else shd.use_weight(params["lm_head"])["w"])
     B, S, D = x.shape
     V = cfg.vocab_size
     xf = x.reshape(-1, D).float()

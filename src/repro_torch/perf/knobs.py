@@ -2,8 +2,12 @@
 
 Set per experiment through a context variable, so model code stays clean.
 Every knob defaults to the paper-faithful baseline.  The port has the
-knobs it reads: ``ce_impl`` and ``ce_chunk`` (``launch.train.make_loss_fn``)
-and ``moe_capacity_factor`` (``models.moe.capacity_for``).  Setting one of
+knobs it reads: ``ce_impl`` and ``ce_chunk`` (``launch.train.make_loss_fn``),
+``moe_capacity_factor`` (``models.moe.capacity_for``) and ``fsdp_gather``
+(``dist.collectives.Zero3``: ``"wsc"`` gathers a block's shards in one
+all-gather of a flat buffer; ``"shardmap"`` gathers each leaf sharded on
+dim 0 by an all-gather of its own, straight into the full weight, and
+the other leaves as ``"wsc"`` does).  Setting one of
 the reference's other knobs raises ``NotImplementedError`` naming the
 ROADMAP item it waits for (``UNPORTED``); an unknown name raises
 ``TypeError``.
@@ -22,12 +26,15 @@ class Knobs:
     ce_impl: str = "dense"      # dense | ring  (vocab-ring fused CE)
     ce_chunk: int = 0           # >0: vocab chunking of the head and CE
     moe_capacity_factor: float = 0.0  # >0 overrides the config value
+    fsdp_gather: str = "wsc"    # wsc | shardmap (the ZeRO-3 use-site gather)
+
+
+FSDP_GATHERS = ("wsc", "shardmap")
 
 
 #: the reference's knobs the port does not implement yet, by what each
 #: waits for
 UNPORTED = {
-    "fsdp_gather": WAITS_FOR["model"],
     "attn_halo": WAITS_FOR["train_sp"],
     "q_chunk": WAITS_FOR["aot"],
     "window_slice": WAITS_FOR["aot"],
@@ -51,6 +58,9 @@ def use_knobs(**kw):
             raise NotImplementedError(
                 f"the knob {name!r} is not ported yet: it waits for "
                 f"{UNPORTED[name]}")
+    if kw.get("fsdp_gather", "wsc") not in FSDP_GATHERS:
+        raise ValueError(f"fsdp_gather={kw['fsdp_gather']!r}: want one of "
+                         f"{FSDP_GATHERS}")
     tok = _current.set(replace(_current.get(), **kw))
     try:
         yield _current.get()

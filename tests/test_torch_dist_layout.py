@@ -7,8 +7,9 @@ the reference's ``named_sharding`` for every mode on the shape-only meshes
 devices, no process group), over the full-size qwen2-0.5b tree with the
 reference's ``stacked_paths_for`` (abstract leaves: JAX's shape structs
 and the port's meta tensors of the same shapes), and over the reference's own
-``tests/sharded/dist_check.py`` leaves.  Then the parts this slice does
-not run raise by name.
+``tests/sharded/dist_check.py`` leaves.  Then the parts the port does
+not run raise by name, and ``train_fsdp`` with a model axis (ZeRO-3)
+passes, its shard plan the reference's ``named_sharding``.
 """
 
 import jax
@@ -154,12 +155,15 @@ def test_placement_of_the_ports_own_tree():
         assert layer["mlp"]["w_down"] == 0
 
 
+# the ids are the ones these cases had beside the two train_fsdp cases
+# (shape2, shape3) that ZeRO-3 retired
 @pytest.mark.parametrize("shape, axes, mode, item", [
-    ((2, 4), ("data", "model"), "train_sp", "A.15.3"),
-    ((2, 4), ("data", "model"), "decode_tp", "A.15.4"),
-    ((2, 4), ("data", "model"), "train_fsdp", "A.15.2"),
-    ((8,), ("data",), "train_fsdp", "A.15.2"),
-    ((8, 1), ("data", "model"), "train_sp", "A.15.3"),
+    pytest.param((2, 4), ("data", "model"), "train_sp", "A.15.3",
+                 id="shape0-axes0-train_sp-A.15.3"),
+    pytest.param((2, 4), ("data", "model"), "decode_tp", "A.15.4",
+                 id="shape1-axes1-decode_tp-A.15.4"),
+    pytest.param((8, 1), ("data", "model"), "train_sp", "A.15.3",
+                 id="shape4-axes4-train_sp-A.15.3"),
 ])
 def test_unported_layouts_raise_by_name(shape, axes, mode, item):
     lay = shd.make_layout(_mesh(shape, axes), mode)
@@ -173,6 +177,32 @@ def test_unported_layouts_raise_by_name(shape, axes, mode, item):
     with use_knobs(ce_impl="ring"), shd.use_layout(lay):
         with pytest.raises(NotImplementedError, match=item):
             TT.make_loss_fn(None)(None, {}, 1.0)
+
+
+@pytest.mark.parametrize("shape, axes", [((2, 4), ("data", "model")),
+                                         ((8,), ("data",))])
+def test_zero3_layouts_pass_and_plan_as_named_sharding(qwen2_tree, shape,
+                                                       axes):
+    """The two ``train_fsdp`` layouts with a model axis of more than one
+    shard (the model axis "model", and "data" itself on a 1-D mesh) pass
+    ``require_data_parallel``; their shard plan's dims are ``placement``'s
+    and the reference's ``named_sharding``'s, leaf for leaf."""
+    mesh = _mesh(shape, axes)
+    lay = shd.make_layout(mesh, "train_fsdp")
+    assert lay.n_shards > 1 and shd.is_zero3(lay)
+    shd.require_data_parallel(lay, "a step")
+    sp = j_stacked_paths_for(jget("qwen2-0.5b"))
+    jlay = jshd.make_layout(mesh, "train_fsdp")
+    want = jax.tree.leaves(jax.tree.map(
+        lambda ns: _spec_dims(ns, jlay.model_axis),
+        jshd.named_sharding(qwen2_tree, jlay, stacked_paths=sp)),
+        is_leaf=lambda x: x is None)
+    plan = shd.shard_plan(_meta(qwen2_tree), lay, stacked_paths=sp)
+    assert [leaf.dim for leaf in plan.leaves] == want
+    assert [leaf.dim for leaf in plan.leaves] == jax.tree.leaves(
+        shd.placement(qwen2_tree, lay, stacked_paths=sp),
+        is_leaf=lambda x: x is None)
+    assert plan.n_shards == lay.n_shards
 
 
 def test_pure_data_parallel_layouts_pass():

@@ -326,11 +326,22 @@ def test_knobs_are_the_reference_knobs_ported_or_named():
                 pass
 
 
-@pytest.mark.parametrize("name", sorted(_fields(JKnobs) - _fields(Knobs)))
+@pytest.mark.parametrize("name", sorted(_fields(JKnobs) - _fields(Knobs)
+                                         | {"fsdp_gather"}))
 def test_unported_knobs_raise_by_name(name):
     """Setting a reference knob the port does not implement raises naming
     the ROADMAP item it waits for (even at the reference's default), and
-    leaves the active knobs as they were."""
+    leaves the active knobs as they were.  ``fsdp_gather``, ported with
+    ZeRO-3 (A.15.2), takes the reference's default and raises by name for
+    a value neither package knows."""
+    if name in _fields(Knobs):
+        with use_knobs(**{name: getattr(JKnobs(), name)}):
+            assert getattr(knobs(), name) == getattr(JKnobs(), name)
+        with pytest.raises(ValueError, match=name):
+            with use_knobs(**{name: "no_such_gather"}):
+                pass
+        assert knobs() == Knobs()
+        return
     with pytest.raises(NotImplementedError,
                        match=rf"{name}.*ROADMAP A\.15\.[2-5]"):
         with use_knobs(**{name: getattr(JKnobs(), name)}):

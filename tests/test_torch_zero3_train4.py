@@ -1,0 +1,106 @@
+"""Port vs JAX package on the CPU: the ZeRO-3 step on 4 gloo ranks.
+
+The (2, 2) ("data", "model") mesh, W = 8 (2 workers a rank): the
+parameters ZeRO-3 over a model axis of 2, the batch over the whole mesh,
+and under zero1 the moments also over "data" (a reduce-scatter of the
+wide runs over "data", an all-gather of the updated pieces).  3 masked
+steps of both ``mask_agg`` paths, zero1 off and on, held against the
+reference's LOCAL step (loss 1e-4, parameters 1e-3); the same runs with
+plain SGD against the port's data-parallel step on the same 4 ranks
+(1e-5); each rank's resident state, its shards, in bytes.
+"""
+
+import numpy as np
+import pytest
+
+from repro_torch import tree
+from repro_torch.dist import sharding as shd
+from repro_torch.launch import ranks
+from repro_torch.models import model as TM
+from test_torch_dp_train import LOSS_TOL, LR, PARAM_TOL
+from test_torch_zero3_layout import _Rank
+from test_torch_zero3_train import (DP_TOL, batches, expected_bytes, held,
+                                    masks, setup, want_local)
+
+R, SHAPE, AXES, W, B = 4, (2, 2), ("data", "model"), 8, 16
+WIDTHS = {}
+CASES = {
+    "psum": ("psum", {}),
+    "weights": ("weights", {}),
+    "psum_zero1": ("psum", dict(zero1=True)),
+    "weights_zero1": ("weights", dict(zero1=True)),
+    "psum_sgd": ("psum", dict(optimizer="sgd")),
+    "weights_sgd": ("weights", dict(optimizer="sgd")),
+    "psum_zero1_sgd": ("psum", dict(zero1=True, optimizer="sgd")),
+    "weights_zero1_sgd": ("weights", dict(zero1=True, optimizer="sgd")),
+}
+
+
+def _spawn(tmp_path_factory):
+    jc, tc, params, p0 = setup(**WIDTHS)
+    ms = masks(3, W, seed=1)
+    calls, names = [], []
+    for name in sorted(CASES):
+        mask_agg, kw = CASES[name]
+        calls.append((ranks.zero3_steps,
+                      (tc, p0, batches(jc, ms, mask_agg, B), mask_agg, LR,
+                       SHAPE, AXES), kw))
+        names.append(name)
+    for mask_agg in ("psum", "weights"):
+        calls.append((ranks.train_steps,
+                      (tc, p0, batches(jc, ms, mask_agg, B), mask_agg, LR),
+                      dict(optimizer="sgd")))
+        names.append(f"dp_{mask_agg}_sgd")
+    pg = tmp_path_factory.mktemp("zero3") / "pg"
+    out = ranks.spawn(ranks.several, R, calls, init_method=f"file://{pg}")
+    got = {name: [rank[i] for rank in out] for i, name in enumerate(names)}
+    local = {m: want_local(jc, tc, params, batches(jc, ms, m, B), m)
+             for m in ("psum", "weights")}
+    return dict(got=got, local=local, tc=tc)
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    return _spawn(tmp_path_factory)
+
+
+ADAM = sorted(c for c in CASES if not c.endswith("_sgd"))
+SGD = sorted(c for c in CASES if c.endswith("_sgd"))
+
+
+@pytest.mark.parametrize("case", ADAM)
+def test_zero3_steps_match_reference_local(runs, case):
+    mask_agg = CASES[case][0]
+    held(runs["got"][case], *runs["local"][mask_agg], LOSS_TOL, PARAM_TOL,
+         case)
+
+
+@pytest.mark.parametrize("case", SGD)
+def test_zero3_steps_match_the_data_parallel_step(runs, case):
+    """Plain SGD on both sides, so the parameters move by the reduced
+    gradient itself: a reduce-scatter adds the ranks in another order
+    than the data-parallel all-reduce, and Adam's normalization would
+    blow a last-bit difference of a near-zero gradient up to the
+    learning rate."""
+    mask_agg = CASES[case][0]
+    dp = runs["got"][f"dp_{mask_agg}_sgd"]
+    want = [x.astype(np.float32) for x in tree.leaves(dp[0][1])]
+    held(runs["got"][case], [m["loss"] for m in dp[0][0]], want, DP_TOL,
+         DP_TOL, case)
+
+
+@pytest.mark.parametrize("case", ADAM)
+def test_zero3_resident_state_is_the_ranks_shards(runs, case):
+    want = expected_bytes(runs["tc"], SHAPE, AXES,
+                          CASES[case][1].get("zero1", False))
+    for rank in runs["got"][case]:
+        assert rank[2]["state_bytes"] == want
+
+
+def test_zero1_halves_the_moments_on_two_data_ranks(runs):
+    tc = runs["tc"]
+    plain = expected_bytes(tc, SHAPE, AXES, False)
+    z1 = expected_bytes(tc, SHAPE, AXES, True)
+    params = sum(x.numel() * x.element_size() for x in tree.leaves(
+        TM.init_model(tc, None, device="meta"))) // 2
+    assert plain - params == 2 * (z1 - params)
