@@ -122,6 +122,21 @@ Phases, one JSON line each; any failure exits non-zero:
                  and collectives every step, the gathered parameters
                  bit-equal to train's; the collectives alone at the step's
                  sizes, ms beside the step's
+  train_sp       sequence parallelism (train_sp): first the flash kernel,
+                 forward and backward through FlashAttention, against its
+                 plain version at the shapes a T-card mesh sends it (bf16;
+                 causal Sq S/T over Sk (s+1) S/T for S 128 at T 2 and 4,
+                 every s; one halo shape, Sk 2 S_loc under a window; the
+                 whisper encoder's Sq 1536/T over 1536 keys, not causal);
+                 then train's setup, seeds and mask schedule at NCCL world
+                 size 1 on a (1, 1) ("data", "model") mesh in train_sp, W 8:
+                 the 4 psum steps and the weights step with the dense CE,
+                 launches and collectives every step, the gathered
+                 parameters bit-equal to train's; then one psum and one
+                 weights step from a fresh state with ce_impl "ring"
+                 against the same with "dense": the loss within 1e-4 and
+                 the aggregated f32 gradient within 1e-3
+                 (tests/sharded/ring_ce_check.py's bars)
   train_parity   the same psum step at full width and 2 layers, f32, W = 4,
                  2 steps, on the CPU (plain versions) and on the card
                  (kernels): loss, aggregated gradient, m, v and p
@@ -281,7 +296,8 @@ Phases, one JSON line each; any failure exits non-zero:
                  broadcast: the C and B rows' head sums too): y and the
                  five gradients; forward and backward device ms beside the
                  backward's bound
-  train_xlstm    full-width, full-depth xlstm-350m (bf16) trained by the
+  train_xlstm    full-width xlstm-350m (bf16; depth 8: seven mLSTM
+                 blocks and the sLSTM) trained by the
                  psum step under train_dmm's DMM controller
                  (CutoffController(rm, 48), ClusterSim(8, 2 nodes, seed
                  7)): seq 128 x batch 16, W 8, fused AdamW, 3 steps, each
@@ -562,8 +578,12 @@ SLICE_FLASH_CASES = ("whisper_enc_s1536", "noncausal_s100",
 # ~30 (obs wraps train_dmm's setup, whose 24-layer run precedes it; its
 # checks hold at any depth).  train_elastic keeps 12: its churn
 # schedule is sized for steps of at least STEP_S_MIN seconds
+# train_xlstm runs 8 (seven mLSTM blocks and the sLSTM; 21.6 s at its
+# full 24 on an H100 80GB HBM3 at 700 W) to pay for train_sp;
+# train_elastic keeps its 12 because its churn schedule assumes steps of
+# STEP_S_MIN or more
 CUT_DEPTH = {"obs": 4, "train_policies": 4, "train_elastic": 12,
-             "train_multi_job": 4}
+             "train_multi_job": 4, "train_xlstm": 8}
 # the CUDA kernels of src/repro_torch/kernels/csrc, by function name
 PORT_KERNELS = ("flash_fwd", "flash_fwd_tc", "flash_split_tc",
                 "flash_combine", "masked_agg", "fused_adam", "mlstm_fwd",
@@ -1604,6 +1624,10 @@ def _shard_major_agg(torch, gen, side):
                 sm.buf, mask, mean=False), side)
             out["natural_ms"] = device_ms(torch, lambda: masked_grad_agg(
                 nat.buf, mask, mean=False), side)
+            # the W rows read once, the sum written once (f32)
+            out["bound_ms"] = ((W + 1) * out["N"] * 4 / HBM_BYTES_PER_S
+                               * 1e3)
+            out["bound_by"] = "bytes"
         del sm, got
     out["bit_equal"] = True
     emit("masked_grad_agg", case="shard_major", shards=SHARD_COUNTS, **out)
@@ -2317,6 +2341,366 @@ def _train_zero3(torch, cfg, params_f32, ref, t_setup):
            "zero1_off": runs[False], "zero1_on": runs[True],
            "seconds": seconds, **times}
     emit("train_zero3", **rec)
+    return totals, rec
+
+
+# train_sp's flash shapes on a T-card mesh: (name, B, Sq, Sk, H, KV, hd,
+# causal, window).  A causal rank s of T gets its S/T queries over the
+# first (s + 1) S/T keys (qwen2-0.5b's heads, a train worker's B 2 at S
+# 128); the halo case is a rank past the first whose window (32) reaches
+# one chunk of 32 back; whisper's encoder rank holds 1536/T frames over
+# all 1536 (8 heads, no GQA)
+SP_FLASH_CASES = (
+    [(f"sp_t{T}_s{s}", 2, 128 // T, (s + 1) * 128 // T, 14, 2, 64, True, 0)
+     for T in (2, 4) for s in range(T)]
+    + [("sp_halo_t4", 2, 32, 64, 14, 2, 64, True, 32)]
+    + [(f"sp_whisper_enc_t{T}", 2, 1536 // T, 1536, 8, 8, 64, False, 0)
+       for T in (2, 4)])
+SP_COLLECTIVES = ("all_gather", "reduce_scatter", "all_reduce", "broadcast",
+                  "all_to_all_single", "batch_isend_irecv")
+RING_TOL = {"loss": 1e-4, "grad": 1e-3}   # tests/sharded/ring_ce_check.py
+
+
+def _sp_flash(torch):
+    """Each SP_FLASH_CASES shape, bf16: the kernel's forward through
+    FlashAttention and its backward (the plain attention's) against the
+    plain version's autograd on the same inputs, at TOL and FLASH_REL_TOL
+    of the largest |output| and |gradient|; the kernel's path and the
+    CUDA kernels a call makes; kernel, plain and SDPA ms (graph replay)
+    beside the bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (
+        FlashAttention, aligned16, choose_path)
+    from repro_torch.kernels.ref import reference_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    side = torch.cuda.Stream()
+    tol, rel_tol = TOL["bfloat16"], FLASH_REL_TOL["bfloat16"]
+    out = {}
+    for name, B, Sq, Sk, H, KV, hd, causal, window in SP_FLASH_CASES:
+        def rand(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(
+                torch.bfloat16).requires_grad_(True)
+
+        q, k, v = rand(B, Sq, H, hd), rand(B, Sk, KV, hd), rand(B, Sk, KV, hd)
+        path = choose_path(q.dtype, Sq, H // KV, aligned16(q, k, v))
+        check(path == "wgmma", f"{name}: takes {path}, not wgmma")
+        y = FlashAttention.apply(q, k, v, causal, window)
+        want = reference_attention(q, k, v, causal=causal, window=window)
+        dy = torch.randn(y.shape, generator=gen, device="cuda").to(y.dtype)
+        got_g = torch.autograd.grad(y, (q, k, v), dy)
+        want_g = torch.autograd.grad(want, (q, k, v), dy)
+        err = (y.float() - want.float()).abs().max().item()
+        want_max = want.float().abs().max().item()
+        check(err <= tol and err / want_max <= rel_tol,
+              f"{name}: forward off by {err} ({err / want_max} of the "
+              f"largest |output| {want_max}; bars {tol}, {rel_tol})")
+        grad_rel = []
+        for label, a, b in zip("qkv", got_g, want_g):
+            scale = b.float().abs().max().item()
+            gerr = (a.float() - b.float()).abs().max().item()
+            grad_rel.append(gerr / scale)
+            check(gerr / scale <= rel_tol, f"{name}: d{label} off by {gerr}, "
+                  f"{gerr / scale} of its largest {scale} > {rel_tol}")
+        qd, kd, vd = (t.detach() for t in (q, k, v))
+        qpos = torch.arange(Sq, device="cuda") + (Sk - Sq)
+        kpos = torch.arange(Sk, device="cuda")
+        mask = torch.ones(Sq, Sk, dtype=torch.bool, device="cuda")
+        if causal:
+            mask &= kpos[None] <= qpos[:, None]
+        if window > 0:
+            mask &= kpos[None] > qpos[:, None] - window
+        qt, kt, vt = (t.transpose(1, 2) for t in (qd, kd, vd))
+
+        def kern():
+            return FlashAttention.apply(qd, kd, vd, causal, window)
+
+        def plain():
+            return reference_attention(qd, kd, vd, causal=causal,
+                                       window=window)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+        with torch.no_grad():
+            lib_err = (sdpa().transpose(1, 2).float() - want.float()
+                       ).abs().max().item()
+            times = {label: device_ms(torch, fn, side) for label, fn in (
+                ("ms", kern), ("plain_ms", plain), ("library_ms", sdpa))}
+            per_call = graph_kernels(torch, kern, side)
+        check(per_call == {"flash_fwd_tc": 1},
+              f"{name}: a call launched {per_call}, not one flash_fwd_tc")
+        if not lib_err <= tol:
+            times["library_ms"] = None   # a yardstick of a wrong result
+        nbytes = 2 * (2 * B * Sq * H * hd + 2 * B * Sk * KV * hd)
+        ops = 4 * B * H * hd * valid_pairs(Sq, Sk, causal, window)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_OPS["bfloat16"] * 1e3
+        rec = {"case": name, "shape": [B, Sq, Sk, H, KV, hd],
+               "causal": causal, "window": window, "path": path,
+               "max_abs_err": err, "rel_err": err / want_max,
+               "grad_rel_err": max(grad_rel), "library_err": lib_err,
+               **times, "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bytes": nbytes, "ops": ops}
+        emit("train_sp_flash", **rec)
+        out[name] = rec
+        del q, k, v, y, want, got_g, want_g
+    return out
+
+
+def phase_train_sp(torch, cfg, params_f32, ref):
+    """Sequence parallelism: the flash kernel at the shapes it gets on a
+    T-card mesh (``_sp_flash``), then train's setup, seeds and schedule
+    through ``train_sp`` at NCCL world size 1 on a (1, 1) ("data",
+    "model") mesh, W 8: the sequence over the model axis (its one rank
+    holds all of it; every gather of k/v, reduce-scatter and all-reduce
+    still runs), the parameters ZeRO-3 over it.  The 4 psum steps and the
+    weights step with the dense CE (launches and collectives every step,
+    the gathered parameters bit-equal to train's), then one psum and one
+    weights step from a fresh state with the vocab-ring CE against the
+    dense one (ring_ce_check's bars)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.dist import collectives
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import init_distributed
+
+    t0 = time.perf_counter()
+    flash = _sp_flash(torch)
+    flash_s = time.perf_counter() - t0
+    build.LAUNCHES.clear()
+    t_setup = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        init_distributed("cuda", init_method=f"file://{d}/pg", rank=0,
+                         world_size=1)
+        try:
+            totals, rec = _train_sp(torch, cfg, params_f32, ref, t_setup)
+        finally:
+            collectives.Zero3._cache.clear()
+            dist.destroy_process_group()
+    rec["seconds"]["flash"] = flash_s
+    emit("train_sp", **rec)
+    return totals, rec, flash
+
+
+def _train_sp(torch, cfg, params_f32, ref, t_setup):
+    import torch.distributed as dist
+
+    from repro_torch import optim, tree
+    from repro_torch.cluster.simulator import ClusterSim
+    from repro_torch.core.controller import FirstKController
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.dist import collectives
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import (gather_state, make_train_step,
+                                          shard_state)
+    from repro_torch.perf.knobs import use_knobs
+
+    W, S, B, L = 8, 128, 16, cfg.n_layers
+    mesh = make_mesh((1, 1), ("data", "model"))
+    lay = shd.make_layout(mesh, "train_sp")
+    check(shd.seq_parallel(lay) and shd.is_zero3(lay) and lay.n_shards == 1
+          and lay.dp_size == 1, f"train_sp layout {lay}")
+    # a forward gathers each block (and again in the backward's
+    # recompute), the embedding twice (its lookup and the tied head) and
+    # the final norm, and k/v once a layer (again in the recompute); the
+    # backward reduce-scatters the k/v gradient once a layer
+    gathers = 4 * L + 3
+    seconds = {"setup": time.perf_counter() - t_setup}
+    calls = {k: 0 for k in SP_COLLECTIVES}
+    real = {k: getattr(dist, k) for k in calls}
+
+    def counting(name):
+        def call(*a, **k):
+            calls[name] += 1
+            return real[name](*a, **k)
+        return call
+
+    def one_step(run, label, want, workers, want_calls):
+        build.LAUNCHES.clear()
+        before = dict(calls)
+        t0 = time.perf_counter()
+        rec = run()
+        wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        check(launches == want, f"train_sp {label}: launches {launches}, "
+              f"want {want}")
+        made = {k: calls[k] - before[k] for k in calls}
+        check(all(made[k] == n for k, n in want_calls.items())
+              and made["all_reduce"] >= workers + 2,
+              f"train_sp {label}: collectives {made}, want {want_calls} and "
+              f"at least {workers + 2} all-reduces")
+        check(bool(np.isfinite(float(rec["loss"]))),
+              f"train_sp {label}: loss {rec['loss']}")
+        emit("train_sp_step", mask_agg=label, wall_ms=wall * 1e3,
+             loss=float(rec["loss"]), launches=launches, collectives=made)
+        return launches, wall * 1e3, made
+
+    psum_want = {"flash_attention": 2 * L * W, "masked_grad_agg_sum": 1,
+                 "fused_adam": 1}
+    weights_want = {"flash_attention": 2 * L, "fused_adam": 1}
+    psum_calls = {"all_gather": W * gathers, "reduce_scatter": W * L + 1,
+                  "broadcast": 1, "all_to_all_single": 0,
+                  "batch_isend_irecv": 0}
+    weights_calls = dict(psum_calls, all_gather=gathers,
+                         reduce_scatter=L + 1)
+    totals, walls, step_calls = {}, [], {}
+
+    def add(launches):
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+
+    for k in calls:
+        setattr(dist, k, counting(k))
+    try:
+        t_run = time.perf_counter()
+        params = cast(params_f32, "cuda", torch.bfloat16)
+        opt = optim.adamw(optim.cosine_schedule(3e-4, 2, 20), fused=True)
+        step_fn = make_train_step(cfg, opt, mask_agg="psum")
+        with shd.use_layout(lay):
+            tr, _ = _train_setup(
+                torch, cfg, params, n_workers=W, seq=S, batch=B,
+                controller=FirstKController(W, backup=2),
+                timer=ClusterSim(n_workers=W, n_nodes=2, seed=7),
+                opt=opt, step_fn=step_fn)
+        del params
+        plan = step_fn.plan_for(lay)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        def trainer_step():
+            with shd.use_layout(lay):
+                return tr.run(1)[-1]
+
+        for _ in range(TRAIN_STEPS + 1):
+            launches, wall, made = one_step(trainer_step, "psum", psum_want,
+                                            W, psum_calls)
+            walls.append(wall)
+            step_calls["psum"] = made
+            add(launches)
+        peak = torch.cuda.max_memory_allocated()
+        with shd.use_layout(lay):
+            got = tree.leaves(gather_state(tr.state, plan, lay)["params"])
+        psum_equal = all(torch.equal(a, b) for a, b in zip(got, ref["psum"]))
+        psum_gap = max((a.float() - b.float()).abs().max().item()
+                       for a, b in zip(got, ref["psum"]))
+        del got
+        tr.step_fn = make_train_step(cfg, opt, mask_agg="weights")
+        tr.mask_agg = "weights"
+        launches, w_wall, step_calls["weights"] = one_step(
+            trainer_step, "weights", weights_want, 1, weights_calls)
+        add(launches)
+        with shd.use_layout(lay):
+            got = tree.leaves(gather_state(tr.state, plan, lay)["params"])
+        final_equal = all(torch.equal(a, b)
+                          for a, b in zip(got, ref["final"]))
+        final_gap = max((a.float() - b.float()).abs().max().item()
+                        for a, b in zip(got, ref["final"]))
+        del got, tr, opt, step_fn
+        torch.cuda.empty_cache()
+        seconds["dense"] = time.perf_counter() - t_run
+
+        # the ring against the dense CE: one psum and one weights step
+        # each from the same fresh state and batch, the aggregated gradient
+        # caught in f32 before its cast to the leaves' dtype
+        t_ring = time.perf_counter()
+        mask = np.ones(W, np.float32)
+        mask[[2, 5]] = 0.0
+        data = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=S,
+                               global_batch=B, seed=SEED).batch(0)
+        caught = []
+        as_tree = collectives.Zero3.as_tree
+
+        def catching(self, like, flat):
+            caught.append([x.clone() for x in flat])
+            return as_tree(self, like, flat)
+
+        ring = {}
+        collectives.Zero3.as_tree = catching
+        try:
+            for agg in ("psum", "weights"):
+                batch = dict(data)
+                if agg == "psum":
+                    batch["mask"] = mask
+                else:
+                    batch["weights"] = collectives.example_weights(mask, B)
+                for impl in ("dense", "ring"):
+                    params = cast(params_f32, "cuda", torch.bfloat16)
+                    opt = optim.adamw(3e-4, fused=True)
+                    step_fn = make_train_step(cfg, opt, mask_agg=agg)
+                    with shd.use_layout(lay):
+                        state = shard_state(
+                            {"params": params, "opt": opt.init(params)},
+                            step_fn.plan_for(lay))
+                    del params
+                    caught.clear()
+                    loss = []
+
+                    def run_one():
+                        with shd.use_layout(lay), use_knobs(ce_impl=impl):
+                            m = step_fn(state, batch)[1]
+                        loss.append(float(m["loss"]))
+                        return m
+
+                    psum = agg == "psum"
+                    n_w = W if psum else 1
+                    # the ring reads the tied head's shard where it lies:
+                    # no gather of it
+                    head = int(impl == "ring" and cfg.tie_embeddings)
+                    launches, wall, _ = one_step(
+                        run_one, f"{agg}_{impl}",
+                        psum_want if psum else weights_want, n_w,
+                        dict(psum_calls if psum else weights_calls,
+                             broadcast=0, all_gather=n_w * (gathers - head)))
+                    add(launches)
+                    ring[(agg, impl)] = {"loss": loss[-1],
+                                         "grad": caught[-1], "wall_ms": wall}
+                    del state, opt, step_fn
+                    torch.cuda.empty_cache()
+        finally:
+            collectives.Zero3.as_tree = as_tree
+        seconds["ring"] = time.perf_counter() - t_ring
+    finally:
+        for k in calls:
+            setattr(dist, k, real[k])
+    check(psum_equal, f"train_sp: the psum steps' parameters differ from "
+          f"train's (max |diff| {psum_gap})")
+    check(final_equal, f"train_sp: the weights step's parameters differ "
+          f"from train's (max |diff| {final_gap})")
+    ring_rec = {}
+    for agg in ("psum", "weights"):
+        d, r = ring[(agg, "dense")], ring[(agg, "ring")]
+        dloss = abs(d["loss"] - r["loss"])
+        gerr = max((a - b).abs().max().item()
+                   for a, b in zip(d["grad"], r["grad"]))
+        gmax = max(a.abs().max().item() for a in d["grad"])
+        ring_rec[agg] = {"dense_loss": d["loss"], "ring_loss": r["loss"],
+                         "dloss": dloss, "grad_max_abs_diff": gerr,
+                         "grad_max_abs": gmax, "dense_wall_ms": d["wall_ms"],
+                         "ring_wall_ms": r["wall_ms"]}
+        check(dloss < RING_TOL["loss"] and gerr < RING_TOL["grad"],
+              f"train_sp {agg}: the ring CE's loss is off the dense one's by "
+              f"{dloss} (bar {RING_TOL['loss']}), its aggregated gradient by "
+              f"{gerr} (bar {RING_TOL['grad']})")
+    del ring
+    rec = {"world_size": dist.get_world_size(),
+           "backend": dist.get_backend(), "W": W, "mesh": dict(mesh.shape),
+           "psum_bit_equal": psum_equal, "psum_max_abs_diff": psum_gap,
+           "weights_bit_equal": final_equal,
+           "weights_max_abs_diff": final_gap,
+           "psum_wall_ms": float(np.median(walls)), "psum_walls_ms": walls,
+           "weights_wall_ms": w_wall,
+           "train_psum_wall_ms": ref["psum_wall_ms"],
+           "max_memory_allocated": peak, "collectives_per_step": step_calls,
+           "gathers_per_forward": gathers, "ring": ring_rec,
+           "seconds": seconds}
     return totals, rec
 
 
@@ -5169,7 +5553,8 @@ def phase_mlstm_grad(torch):
 
 
 def phase_train_xlstm(torch, cfg, params_f32, rm):
-    """Full-width, full-depth xlstm-350m (bf16) trained by the psum step
+    """Full-width xlstm-350m (bf16; the script cuts its depth to
+    CUT_DEPTH["train_xlstm"]) trained by the psum step
     under train_dmm's DMM controller over ClusterSim(8, 2 nodes, seed 7):
     seq 128 x batch 16, W 8, fused AdamW.  Each step asserts n_mlstm x 8
     mlstm_chunk launches (every mLSTM block of every worker, forward
@@ -6420,6 +6805,8 @@ def main() -> int:
                                 params_f32, train_ref)
     z3_launches, z3_rec = timed(sec, "train_zero3", phase_train_zero3, torch,
                                 cfg, params_f32, train_ref)
+    sp_launches, sp_rec, sp_flash = timed(sec, "train_sp", phase_train_sp,
+                                          torch, cfg, params_f32, train_ref)
     del train_ref
     timed(sec, "train_parity", phase_train_parity, torch, cfg)
     timed(sec, "dmm", phase_dmm, torch)
@@ -6450,8 +6837,11 @@ def main() -> int:
     timed(sec, "serve_xlstm_parity", phase_xlstm_parity, torch, xcfg,
           xparams)
     mlstm_grad = timed(sec, "mlstm_grad", phase_mlstm_grad, torch)
+    n_x = CUT_DEPTH["train_xlstm"]
     xtrain_launches = timed(sec, "train_xlstm", phase_train_xlstm, torch,
-                            xcfg, xparams, rm)
+                            dataclasses.replace(xcfg, n_layers=n_x),
+                            dict(xparams, layers=xparams["layers"][:n_x]),
+                            rm)
     del xparams
     timed(sec, "train_xlstm_parity", phase_train_xlstm_parity, torch, xcfg)
     mcfg = get_config("deepseek-moe-16b")
@@ -6493,6 +6883,7 @@ def main() -> int:
                    "train_psum_steps": train_launches.get(name, 0),
                    "train_dp": dp_launches.get(name, 0),
                    "train_zero3": z3_launches.get(name, 0),
+                   "train_sp": sp_launches.get(name, 0),
                    "train_dmm": dmm_launches.get(name, 0),
                    "obs": obs_launches.get(name, 0),
                    "train_policies": policy_launches.get(name, 0),
@@ -6560,6 +6951,8 @@ def main() -> int:
               **{k: mlstm_grad[MLSTM_GRAD_HEADLINE][k]
                  for k in ("fwd_ms", "bwd_ms", "bwd_bound_ms",
                            "bwd_bound_by")},
+              "fwd_bound_ms": mlstm_grad[MLSTM_GRAD_HEADLINE]["bound_ms"],
+              "fwd_bound_by": mlstm_grad[MLSTM_GRAD_HEADLINE]["bound_by"],
               "hymba_case": MLSTM_HYMBA_HEADLINE,
               **{f"hymba_{k}": hymba_mlstm[k]
                  for k in ("path", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -6595,6 +6988,8 @@ def main() -> int:
         **{f"train_zero3_{part}_{k}": z3_rec[part][k]
            for part in ("zero1_off", "zero1_on")
            for k in ("psum_wall_ms", "collectives_share_of_psum_step")},
+        **{f"train_sp_{k}": sp_rec[k] for k in (
+            "psum_wall_ms", "weights_wall_ms", "max_memory_allocated")},
         "shard_major": agg_shard})
     # the serve decode's call: the key count on the device (graph decode)
     dec = flash_len[FLASH_LEN_HEADLINE]
@@ -6614,6 +7009,12 @@ def main() -> int:
                                      "max_abs_want", "rel_err",
                                      "dropped_tile_rel_err", "path")}
         for c in SLICE_FLASH_CASES}
+    # train_sp's per-shard shapes (causal ranks, the halo, the encoder)
+    rows[0]["sp_cases"] = {
+        c: {k: sp_flash[c][k] for k in (
+            "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "max_abs_err", "rel_err", "grad_rel_err")}
+        for c in sp_flash}
     print(json.dumps({"kernels": rows}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

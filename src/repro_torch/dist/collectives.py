@@ -26,18 +26,33 @@
     is ONE sum-mode pass of the kernel, the reduce-scatter, the sums and
     the division: this rank's gradient, shaped as its moments.
 
+  * Sequence parallelism over the model axis (``train_sp``), each an
+    autograd Function whose backward is its forward's transpose:
+    ``seq_gather`` (an all-gather of the ranks' columns; backward, a
+    reduce-scatter), ``halo`` (the neighbouring chunks a sliding window
+    reads, by point-to-point sends; backward, the reverse sends),
+    ``ring_shift`` (a block one step round the model ring), ``all_to_all``
+    (equal blocks of dim 0 to each rank; backward, the same exchange of
+    the gradients), ``vocab_block`` (an untied head's dim-0 shard
+    re-blocked to its vocab columns) and the sums and means over the
+    model axis of values every rank then holds (``model_sum``,
+    ``model_mean``; backward, the identity or its 1/T: each rank's loss is
+    the whole one, so its cotangent needs no sum).  Together they keep
+    the gradient a rank computes its own path's part of the whole one;
+    the step's reduce-scatter over the model axis sums them.
+
 Every collective is a ``torch.distributed`` call in its list form
-(``all_gather``, ``reduce_scatter``), which both torch versions in use
-run without a deprecation warning, and each runs at any group size, one
-included.  A layout this slice does not run (``train_sp``,
-``decode_tp``) raises, naming the ROADMAP item it waits for; nothing
-falls back to the one-process path.
+(``all_gather``, ``reduce_scatter``), ``all_to_all_single`` or
+``batch_isend_irecv``, which both torch versions in use run without a
+deprecation warning, and each runs at any group size, one included.  A
+layout this slice does not run (``decode_tp``) raises, naming the
+ROADMAP item it waits for; nothing falls back to the one-process path.
 """
 from __future__ import annotations
 
 import contextlib
 import math
-from typing import Dict
+from typing import Any, Dict, NamedTuple
 
 import numpy as np
 import torch
@@ -131,15 +146,39 @@ class _Gather(torch.autograd.Function):
         return (None, None) + (None,) * ctx.n + tuple(grads)
 
 
+class _Local(torch.autograd.Function):
+    """A shard used where it lies (``dist.sharding.use_shard``): forward,
+    the shard itself; backward, its gradient, which is the whole gradient
+    of this rank's slice, written into that slice of a zero gradient of
+    the full leaf for its receiver, so the reduce-scatter over the model
+    axis hands it back to this rank with nothing added to it."""
+
+    @staticmethod
+    def forward(ctx, shard, receiver, dim, start):
+        ctx.dim, ctx.start = dim, start
+        ctx.shape = tuple(receiver.shape)
+        return shard.view_as(shard)
+
+    @staticmethod
+    def backward(ctx, g):
+        full = g.new_zeros(ctx.shape)
+        full.narrow(ctx.dim, ctx.start, g.shape[ctx.dim]).copy_(g)
+        return None, full, None, None
+
+
 class Zero3:
     """The ZeRO-3 collectives of one ``dist.sharding.ShardPlan`` on the
-    mesh of a ``train_fsdp`` layout.
+    mesh of a ``train_fsdp`` or ``train_sp`` layout.
 
-    Groups: the model axis (the gathers and the reduce-scatter), the dp
-    axes (every rank: the replicated leaves, the metrics, the norm), and
+    Groups: the model axis (the gathers and the reduce-scatter), every
+    rank of the dp and model axes (the replicated leaves, the norm), and
     the other dp axes (the sums of a slice over its replicas); under
     zero1 "data" apart (its reduce-scatter and all-gather) from the rest.
-    Every rank makes them in this order, at construction.
+    Every rank makes them in this order, at construction.  Under
+    ``train_sp`` the ranks of one model axis share their workers and each
+    holds its columns' part of their gradients, which the reduce-scatter
+    and the sum over every rank add up; only the first of them counts
+    the workers' ``sum m``.
     """
 
     _cache: Dict = {}
@@ -147,12 +186,14 @@ class Zero3:
     def __init__(self, lay, plan):
         shd.require_data_parallel(lay, "ZeRO-3")
         if not shd.is_zero3(lay):
-            raise ValueError(f"ZeRO-3 runs under a train_fsdp layout with a "
-                             f"model axis; got {lay}")
+            raise ValueError(f"ZeRO-3 runs under a train_fsdp or train_sp "
+                             f"layout with a model axis; got {lay}")
         mesh = lay.mesh
         self.lay, self.plan, self.mesh = lay, plan, mesh
         model = (lay.model_axis,)
         others = tuple(a for a in lay.dp if a != lay.model_axis)
+        ranks = set(lay.dp) | set(model)
+        everyone = tuple(a for a in mesh.axis_names if a in ranks)
         if plan.zero1 and "data" not in others:
             raise ValueError(
                 f"zero1 splits the moments over a 'data' axis beside the "
@@ -161,7 +202,7 @@ class Zero3:
         self.data = ("data",) if plan.zero1 else ()
         rest = tuple(a for a in others if a not in self.data)
         self.g_model = mesh.group(model)
-        self.g_dp = mesh.group(tuple(lay.dp))
+        self.g_all = mesh.group(everyone)
         self.g_others = mesh.group(others) if others else None
         self.g_data = mesh.group(self.data) if self.data else None
         self.g_rest = mesh.group(rest) if rest else None
@@ -170,9 +211,11 @@ class Zero3:
         # every replica along the rest, a replicated leaf everywhere
         first_other = mesh.index(others) == 0 if others else True
         first_rest = mesh.index(rest) == 0 if rest else True
-        first_dp = mesh.index(tuple(lay.dp)) == 0
+        first_all = mesh.index(everyone) == 0
+        self.counts_mask = (not shd.seq_parallel(lay)
+                            or mesh.index(model) == 0)
         self.own = np.array(
-            [first_dp if leaf.dim is None else
+            [first_all if leaf.dim is None else
              first_rest if leaf.wide else first_other
              for leaf in plan.leaves], np.float32)
         self._own_dev = None
@@ -215,15 +258,22 @@ class Zero3:
                 out[j] = f
         return out
 
-    def _gather_tree(self, t):
+    def _gather_tree(self, t, local=False):
         flat = tree.leaves(t)
         where = [self._where.get(id(x)) for x in flat]
         pick = [j for j, i in enumerate(where) if i is not None]
         if not pick:
             return t
         idx = tuple(where[j] for j in pick)
-        full = _Gather.apply(self, idx, *[self._shards[i] for i in idx],
-                             *[self._recvs[i] for i in idx])
+        if local:
+            plan = self.plan
+            full = [_Local.apply(
+                self._shards[i], self._recvs[i], plan.leaves[i].dim,
+                plan.shard * plan.slice_shape(i)[plan.leaves[i].dim])
+                for i in idx]
+        else:
+            full = _Gather.apply(self, idx, *[self._shards[i] for i in idx],
+                                 *[self._recvs[i] for i in idx])
         out = list(flat)
         for j, f in zip(pick, full):
             out[j] = f
@@ -279,7 +329,7 @@ class Zero3:
             zero1 a reduce-scatter of the D wide runs over "data" and an
             all-reduce of the narrow columns (then the rest of the axes);
           * one all-reduce of the replicated columns (and ``sum m``) over
-            every dp rank;
+            every rank;
           * with ``sum m``, every column divided by ``max(sum m, 1)``.
         """
         plan = self.plan
@@ -290,7 +340,7 @@ class Zero3:
                                 group=self.g_model)
         tail = total[T * blk:]
         if tail.numel():
-            dist.all_reduce(tail, op=dist.ReduceOp.SUM, group=self.g_dp)
+            dist.all_reduce(tail, op=dist.ReduceOp.SUM, group=self.g_all)
         narrow = red[D * Wd:]
         if self.data:
             wide = torch.empty(Wd, dtype=red.dtype, device=red.device)
@@ -332,7 +382,10 @@ class Zero3:
                                                    non_blocking=True)
         total = torch.empty(N + 1, dtype=torch.float32, device=buf.buf.device)
         ops.masked_aggregate(buf.buf, local, mean=False, out=total[:N])
-        total[N:].copy_(torch.sum(local).reshape(1))
+        if self.counts_mask:
+            total[N:].copy_(torch.sum(local).reshape(1))
+        else:   # train_sp: the first rank of the model axis counts them
+            total[N:].zero_()
         return self.as_tree(buf.like, self.reduce(total))
 
     def as_tree(self, like, flat):
@@ -413,14 +466,14 @@ class Zero3:
     def global_norm(self, grads):
         """The full gradient's norm from this rank's parts: each leaf's
         sum of squares, counted on one rank of those holding the same
-        part, all-reduced over the dp ranks in one (n_leaves,) vector
+        part, all-reduced over every rank in one (n_leaves,) vector
         (with one rank the vector ``optim.global_norm`` sums)."""
         flat = tree.leaves(grads)
         if self._own_dev is None or self._own_dev.device != flat[0].device:
             self._own_dev = torch.from_numpy(self.own).to(flat[0].device)
         sq = torch.stack([torch.sum(torch.square(x.float())) for x in flat])
         sq = sq * self._own_dev
-        dist.all_reduce(sq, op=dist.ReduceOp.SUM, group=self.g_dp)
+        dist.all_reduce(sq, op=dist.ReduceOp.SUM, group=self.g_all)
         return torch.sqrt(sq.sum())
 
     def max_over_model(self, maxes):
@@ -454,3 +507,220 @@ class Zero3:
                 for i, f in zip(js, full):
                     flat[i] = f
         return tree.unflatten(like_shards, flat)
+
+
+# ---------------------------------------------------------------------------
+# Sequence parallelism over the model axis (train_sp).
+# ---------------------------------------------------------------------------
+
+
+class ModelAxis(NamedTuple):
+    """The model axis of a ``train_sp`` layout, as this rank sees it."""
+    mesh: Any
+    axis: str
+    size: int        # T
+    index: int       # s, this rank's place on it
+    group: Any
+
+    def peer(self, index: int) -> int:
+        """The global rank at ``index`` on this rank's model axis."""
+        return self.mesh.global_rank((self.axis,), index)
+
+
+def model_axis(lay=None) -> ModelAxis:
+    """The active (or given) ``train_sp`` layout's model axis."""
+    lay = shd.layout() if lay is None else lay
+    if not shd.seq_parallel(lay):
+        raise ValueError(f"the sequence collectives run under a train_sp "
+                         f"layout on a mesh; got {lay}")
+    m = lay.model_axis
+    return ModelAxis(lay.mesh, m, lay.n_shards, lay.mesh.index((m,)),
+                     lay.mesh.group((m,)))
+
+
+def _exchange(sends, recvs, group):
+    """One batch of point-to-point ops: ``sends`` and ``recvs`` are
+    (tensor, global peer rank) pairs; returns when all are done."""
+    ops_ = ([dist.P2POp(dist.isend, t, p, group) for t, p in sends]
+            + [dist.P2POp(dist.irecv, t, p, group) for t, p in recvs])
+    if ops_:
+        for req in dist.batch_isend_irecv(ops_):
+            req.wait()
+
+
+class _SeqGather(torch.autograd.Function):
+    """This rank's columns on ``dim`` -> the T ranks' columns in order;
+    backward, a reduce-scatter: each rank the sum of every rank's
+    gradient of its columns."""
+
+    @staticmethod
+    def forward(ctx, x, dim, ax):
+        ctx.dim, ctx.ax = dim, ax
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(ax.size)]
+        dist.all_gather(parts, x, group=ax.group)
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        parts = [c.contiguous() for c in g.chunk(ctx.ax.size, dim=ctx.dim)]
+        out = torch.empty_like(parts[0])
+        dist.reduce_scatter(out, parts, group=ctx.ax.group)
+        return out, None, None
+
+
+def seq_gather(x, dim: int = 1, lay=None):
+    """The full sequence from every rank's columns of it (dim ``dim``):
+    one all-gather over the model axis; its gradient a reduce-scatter."""
+    return _SeqGather.apply(x, dim, model_axis(lay))
+
+
+class _Halo(torch.autograd.Function):
+    """The ``hops`` chunks before this rank's (fewer on the first ranks,
+    which have fewer before them), then its own, along ``dim``: each rank
+    sends its chunk to the next ``hops`` ranks; backward, each received
+    chunk's gradient goes back to its sender, which adds it to its own."""
+
+    @staticmethod
+    def forward(ctx, x, dim, hops, ax):
+        s, T = ax.index, ax.size
+        ctx.dim, ctx.hops, ctx.ax = dim, hops, ax
+        x = x.contiguous()
+        got = [torch.empty_like(x) for _ in range(min(hops, s))]
+        _exchange([(x, ax.peer(s + h)) for h in range(1, hops + 1)
+                   if s + h < T],
+                  [(got[-h], ax.peer(s - h)) for h in range(1, len(got) + 1)],
+                  ax.group)
+        return torch.cat(got + [x], dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        ax, hops, dim = ctx.ax, ctx.hops, ctx.dim
+        s, T = ax.index, ax.size
+        parts = list(g.chunk(min(hops, s) + 1, dim=dim))
+        mine = parts.pop().clone()
+        back = [torch.empty_like(mine) for h in range(1, hops + 1)
+                if s + h < T]
+        _exchange([(parts[-h].contiguous(), ax.peer(s - h))
+                   for h in range(1, len(parts) + 1)],
+                  [(b, ax.peer(s + h)) for h, b in enumerate(back, 1)],
+                  ax.group)
+        for b in back:
+            mine += b
+        return mine, None, None, None
+
+
+def halo(x, hops: int, dim: int = 1, lay=None):
+    """This rank's columns with the ``min(hops, s)`` ranks' columns before
+    them prepended (dim ``dim``), by point-to-point sends over the model
+    axis: what a sliding window of at most ``hops`` chunks reads."""
+    return _Halo.apply(x, dim, hops, model_axis(lay))
+
+
+class _RingShift(torch.autograd.Function):
+    """``x`` one step round the model ring: each rank's to the rank
+    before it (s - 1), the first rank's to the last; backward, the
+    gradients the other way round."""
+
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        return _ring(x, ax, -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ring(g, ctx.ax, 1), None
+
+
+def _ring(x, ax, step):
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    s, T = ax.index, ax.size
+    _exchange([(x, ax.peer((s + step) % T))],
+              [(out, ax.peer((s - step) % T))], ax.group)
+    return out
+
+
+def ring_shift(x, lay=None):
+    """The block of the rank after this one (s + 1), this rank's going to
+    the rank before it: one step of the vocab ring."""
+    return _RingShift.apply(x, model_axis(lay))
+
+
+class _AllToAll(torch.autograd.Function):
+    """Block t of ``x``'s dim 0 (T equal blocks) to rank t, block t of the
+    result from rank t; the backward exchanges the gradients alike."""
+
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        return _a2a(x, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _a2a(g, ctx.ax), None
+
+
+def _a2a(x, ax):
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=ax.group)
+    return out
+
+
+def all_to_all(x, lay=None):
+    """One all-to-all over the model axis of ``x``'s T equal dim-0 blocks
+    (expert parallelism's dispatch and its inverse)."""
+    return _AllToAll.apply(x, model_axis(lay))
+
+
+def vocab_block(w, lay=None):
+    """An untied head's ZeRO-3 shard, this rank's (D/T, V) rows of the
+    (D, V) weight, -> its vocab block, the (D, V/T) columns ``[s V/T,
+    (s+1) V/T)``: one all-to-all over the model axis.  Its gradient
+    comes back by the inverse exchange as the gradient of the rank's own
+    shard, whole."""
+    ax = model_axis(lay)
+    rows, V = w.shape
+    if V % ax.size:
+        raise ValueError(f"vocab_block: a vocab of {V} does not split over "
+                         f"{ax.size} ranks")
+    parts = w.unflatten(1, (ax.size, V // ax.size)).transpose(0, 1)
+    return _AllToAll.apply(parts, ax).reshape(ax.size * rows, V // ax.size)
+
+
+class _ModelSum(torch.autograd.Function):
+    """The sum over the model axis of every rank's part, held by each;
+    backward, the identity: every rank's loss is the whole sum, so the
+    cotangent of a rank's part is the sum's."""
+
+    @staticmethod
+    def forward(ctx, x, ax, scale):
+        ctx.scale = scale
+        y = x.clone()
+        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=ax.group)
+        return y if scale == 1.0 else y * scale
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.scale == 1.0 else g * ctx.scale), None, None
+
+
+def model_sum(x, lay=None):
+    """Under ``train_sp``, the sum of ``x`` over the model axis (a loss's
+    parts over the ranks' columns); ``x`` itself under other layouts."""
+    lay = shd.layout() if lay is None else lay
+    if not shd.seq_parallel(lay):
+        return x
+    return _ModelSum.apply(x, model_axis(lay), 1.0)
+
+
+def model_mean(x, lay=None):
+    """Under ``train_sp``, the mean of ``x`` over the model axis (the MoE
+    router's statistics over the ranks' tokens); its gradient 1/T of the
+    cotangent; ``x`` itself under other layouts."""
+    lay = shd.layout() if lay is None else lay
+    if not shd.seq_parallel(lay):
+        return x
+    ax = model_axis(lay)
+    return _ModelSum.apply(x, ax, 1.0 / ax.size)

@@ -21,10 +21,16 @@
     leaf's placement, this rank's slice, and its columns in the
     shard-major flat order of the ZeRO-3 gradient buffers.
   * ``use_weight(tree)`` — the use-site gather of ZeRO-3-sharded weights
-    (identity unless a train step's gather is active), ``remat`` — a
-    block run so that its gathered weights are gathered again in the
-    backward instead of kept, and ``act(x, dp, sp, tp)`` — the
-    activation constraint (identity under every layout the port runs).
+    (identity unless a train step's gather is active), ``use_shard(tree)``
+    — this rank's ZeRO-3 slice of each leaf, used where it lies (the
+    vocab ring's block, expert parallelism's bank), ``remat`` — a block
+    run so that its gathered weights are gathered again in the backward
+    instead of kept, and ``act(x, dp, sp, tp, seq=...)`` — the
+    activation constraint: the identity, except that under ``train_sp``
+    it gathers or slices the sequence as asked.
+  * ``seq_parallel`` / ``seq_span`` / ``seq_shard`` — whether the active
+    layout splits the sequence over the model axis, and this rank's
+    columns of a full sequence.
 
 A mesh is anything with ``axis_names`` and ``shape`` by axis name: the
 port's ``launch.mesh.Mesh`` over a process group (what the train step
@@ -35,8 +41,15 @@ The port runs ``train_fsdp``: the batch over the whole mesh and, when the
 layout names a model axis (``make_layout`` always does), the parameters
 and moments ZeRO-3 over it (``launch.train``, ``dist.collectives.Zero3``);
 a hand-built ``Layout`` without a model axis is pure data parallelism.
-``train_sp`` and ``decode_tp`` raise by name
-(:func:`require_data_parallel`); nothing falls back to one process.
+It runs ``train_sp`` too: the batch over the dp axes, the sequence over
+the model axis and the parameters ZeRO-3 over it.  Under ``train_sp``
+every activation a rank holds is its own columns of the sequence (the
+model's forward takes them from the full batch it is given): ``act``
+says by its ``seq`` argument whether a tensor is that slice or the full
+sequence, and never guesses it from a shape.  The archs with SSM blocks
+raise there by name (``WAITS_FOR["train_sp_ssm"]``), and ``decode_tp``
+raises by name (:func:`require_data_parallel`); nothing falls back to
+one process.
 """
 from __future__ import annotations
 
@@ -57,8 +70,14 @@ WAITS_FOR = {
     # ported: ZeRO-3 over the model axis under train_fsdp, with zero1
     "model": "ROADMAP A.15.2 (ZeRO-3 over the model axis, state_shardings "
              "and zero1; ported for train_fsdp)",
+    # ported for the attention archs: the sequence over the model axis,
+    # K/V gathered, the vocab ring, the MoE all-to-all, the halo
     "train_sp": "ROADMAP A.15.3 (train_sp: sequence parallelism, the ring "
-                "CE and ssm.py's train_sp branches)",
+                "CE and the MoE all-to-all; ported for the attention archs)",
+    "train_sp_ssm": "ROADMAP A.15.3b (train_sp's ssm.py branches: the "
+                    "exclusive prefix across shards, the conv halo, the "
+                    "gathered sLSTM, and mlstm_chunk taking an entering "
+                    "state and a gradient on its final state)",
     "decode_tp": "ROADMAP A.15.4 (decode_tp: tensor-parallel decode with "
                  "cache_pspec)",
     "aot": "ROADMAP A.15.5 (the AOT mesh tooling: make_production_mesh, "
@@ -143,28 +162,48 @@ def make_layout(mesh, mode: str) -> Layout:
 
 def is_zero3(lay) -> bool:
     """True for a layout whose parameters are ZeRO-3 over a model axis:
-    ``train_fsdp`` on a mesh with a model axis (of any size, 1 included:
-    every collective still runs)."""
+    ``train_fsdp`` or ``train_sp`` on a mesh with a model axis (of any
+    size, 1 included: every collective still runs)."""
     return (isinstance(lay, Layout) and lay.mesh is not None
-            and lay.mode == "train_fsdp" and lay.model_axis is not None)
+            and lay.mode in ("train_fsdp", "train_sp")
+            and lay.model_axis is not None)
+
+
+def seq_parallel(lay=None) -> bool:
+    """True when ``lay`` (default: the active layout) splits the sequence
+    over its model axis: ``train_sp`` on a mesh."""
+    lay = layout() if lay is None else lay
+    return (isinstance(lay, Layout) and lay.mesh is not None
+            and lay.mode == "train_sp" and lay.model_axis is not None)
 
 
 def require_data_parallel(lay: Layout, what: str) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item that ``what``
-    waits for under ``lay``: ``train_sp`` or ``decode_tp``; or, for
-    anything but a :class:`Layout` (the reference's own, say), that the
-    port runs none.  LOCAL, pure data-parallel layouts and ``train_fsdp``
-    with a model axis of any size (ZeRO-3) pass."""
+    waits for under ``lay``: ``decode_tp``; or, for anything but a
+    :class:`Layout` (the reference's own, say), that the port runs none.
+    LOCAL, pure data-parallel layouts, ``train_fsdp`` with a model axis of
+    any size (ZeRO-3) and ``train_sp`` pass."""
     if not isinstance(lay, Layout):
         raise NotImplementedError(
             f"{what} takes a repro_torch.dist.sharding.Layout; a "
             f"{type(lay).__name__} is not a layout the port runs")
     if lay.mesh is None:
         return
-    if lay.mode in ("train_sp", "decode_tp"):
+    if lay.mode == "decode_tp":
         raise NotImplementedError(
             f"{what} under a {lay.mode} layout is not ported yet: it waits "
             f"for {WAITS_FOR[lay.mode]}")
+
+
+def require_no_ssm(what: str) -> None:
+    """Raise ``NotImplementedError`` naming ``WAITS_FOR["train_sp_ssm"]``
+    when the active layout splits the sequence: ``what`` (an SSM
+    recurrence, conv or scan) has no ``train_sp`` branch yet, and it must
+    not run on one rank's columns as if they were the whole sequence."""
+    if seq_parallel():
+        raise NotImplementedError(
+            f"{what} under train_sp is not ported yet: it waits for "
+            f"{WAITS_FOR['train_sp_ssm']}")
 
 
 # ---------------------------------------------------------------------------
@@ -447,8 +486,9 @@ _gather_var: contextvars.ContextVar[Optional[Callable]] = (
 
 @contextlib.contextmanager
 def gathering(fn: Callable):
-    """Install ``fn`` (tree -> the tree with its ZeRO-3 shards gathered)
-    as :func:`use_weight`'s gather; a ZeRO-3 train step installs its
+    """Install ``fn`` (tree, local -> the tree with its ZeRO-3 shards
+    gathered, or with ``local`` used where they lie) as :func:`use_weight`'s
+    gather and :func:`use_shard`'s; a ZeRO-3 train step installs its
     ``dist.collectives.Zero3`` session around its forward and backward."""
     tok = _gather_var.set(fn)
     try:
@@ -464,7 +504,44 @@ def use_weight(tree):
     when no gather is active (LOCAL, pure data parallelism, serving) and
     for leaves that are not shards (already gathered, or replicated)."""
     fn = _gather_var.get()
-    return tree if fn is None else fn(tree)
+    return tree if fn is None else fn(tree, False)
+
+
+def use_shard(tree):
+    """This rank's ZeRO-3 slice of every leaf of ``tree``, used where it
+    lies: the vocab ring's block of the head and expert parallelism's
+    bank under ``train_sp``.  Inside a ZeRO-3 step the leaves are the
+    shards, and each one's gradient, which is its slice's whole gradient,
+    reaches its slice of the full-shaped gradient (zeros elsewhere), so
+    the step's reduce-scatter hands it to this rank unsummed.  Outside
+    one the leaves are full and this is their slice on
+    :func:`placement`'s dim (a view; autograd pads its gradient with
+    zeros); a replicated leaf is kept whole.  The identity under a layout
+    without a model axis."""
+    fn = _gather_var.get()
+    if fn is not None:
+        return fn(tree, True)
+    lay = layout()
+    if lay.mesh is None or lay.model_axis is None:
+        return tree
+    dims = placement(tree, lay)
+    T, s = lay.n_shards, lay.mesh.index((lay.model_axis,))
+
+    def cut(x, k):
+        if k is None:
+            return x
+        n = x.shape[k] // T
+        return x.narrow(k, s * n, n)
+
+    return _zip_map(cut, tree, dims)
+
+
+def _zip_map(fn, node, other):
+    if isinstance(node, dict):
+        return {k: _zip_map(fn, v, other[k]) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_zip_map(fn, v, o) for v, o in zip(node, other))
+    return fn(node, other)
 
 
 def remat(fn, *args):
@@ -485,13 +562,55 @@ def remat(fn, *args):
     return checkpoint(run, *args, use_reentrant=False)
 
 
-def act(x, dp=None, sp=None, tp=None):
+def seq_span(S: int, lay=None) -> Tuple[int, int]:
+    """(start, length): this rank's columns of a full sequence of ``S``
+    under ``train_sp`` (rank s of T on the model axis holds ``[s S/T,
+    (s+1) S/T)``); ``(0, S)`` under every other layout.  ``S`` must
+    divide by T: anything else raises ``ValueError`` naming both."""
+    lay = layout() if lay is None else lay
+    if not seq_parallel(lay):
+        return 0, S
+    T = lay.n_shards
+    if S % T:
+        raise ValueError(f"train_sp splits the sequence over the "
+                         f"{lay.model_axis!r} axis's {T} ranks: a length of "
+                         f"{S} does not divide by {T}")
+    n = S // T
+    return lay.mesh.index((lay.model_axis,)) * n, n
+
+
+def seq_shard(x, dim: int = 1):
+    """This rank's columns of ``x``'s full sequence dim ``dim`` under
+    ``train_sp`` (a view), ``x`` itself under every other layout."""
+    if not seq_parallel():
+        return x
+    return x.narrow(dim, *seq_span(x.shape[dim]))
+
+
+def act(x, dp=None, sp=None, tp=None, *, seq: str = "local"):
     """The reference's activation constraint on dims (batch, seq,
-    feature).  The identity under LOCAL and ``train_fsdp``: each rank
-    already holds only its own batch rows, whole, which is what the
-    constraint asks there.  ``train_sp`` and ``decode_tp`` split the
-    sequence or the features across ranks: they raise by name."""
+    feature).
+
+    The identity under LOCAL and ``train_fsdp``: each rank already holds
+    only its own batch rows, whole, which is what the constraint asks
+    there.  Under ``train_sp`` the caller says what ``x``'s dim 1 is:
+    ``seq="local"`` (this rank's columns, what every activation of the
+    model is) or ``seq="full"`` (the whole sequence).  ``sp="sp"`` then
+    keeps a local ``x`` and takes this rank's columns of a full one;
+    ``sp=None`` keeps a full ``x`` and gathers a local one over the model
+    axis (its backward a reduce-scatter).  ``decode_tp`` splits the
+    features across ranks: it raises by name."""
+    if seq not in ("local", "full"):
+        raise ValueError(f"act: seq={seq!r}, want 'local' or 'full'")
     lay = layout()
-    if lay.mesh is not None:
-        require_data_parallel(lay, "an activation constraint")
-    return x
+    if lay.mesh is None:
+        return x
+    require_data_parallel(lay, "an activation constraint")
+    if not seq_parallel(lay):
+        return x
+    if sp == "sp":
+        return x if seq == "local" else seq_shard(x, 1)
+    if seq == "full":
+        return x
+    from repro_torch.dist import collectives   # collectives imports this
+    return collectives.seq_gather(x, 1)

@@ -21,8 +21,9 @@ carries ~1e-4 of rounding into every exponent, which puts the output
 outside 5e-4 of the sequential oracle (``ref.reference_mlstm``) where the
 normalizer cancels.  In f64 the differences keep f32 precision.  The JAX
 module also shards the sequence over the "model" axis under the
-``train_sp`` layout; that branch waits for the port's ``train_sp`` slice
-(ROADMAP A.15.3).
+``train_sp`` layout (an exclusive prefix across shards); that branch
+waits for ROADMAP A.15.3b, and under ``train_sp`` ``linear_recurrence``
+raises ``NotImplementedError`` naming it.
 
 It lives in the kernels layer because it is what the ``mlstm_chunk``
 wrapper runs on CPU tensors and what ``chip_smoke.py`` holds the kernel
@@ -35,6 +36,8 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
+
+from repro_torch.dist import sharding as shd
 
 NEG = -1e30
 
@@ -150,6 +153,7 @@ def linear_recurrence(q, k, v, g, i, *, chunk: int = 128,
     (None: 1/sqrt(dq)) multiplies q k; ``normalize=False`` returns JAX's
     unnormalized numerator.
     """
+    shd.require_no_ssm("linear_recurrence")
     B, S, h, dq = q.shape
     dv = v.shape[-1]
     c = chunk if S % chunk == 0 and S > chunk else S

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree
+from repro_torch.dist import sharding as shd
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_adam import LeafTable, fused_adam_
 from repro_torch.kernels.masked_grad_agg import masked_grad_agg
@@ -36,7 +37,10 @@ def mlstm(q, k, v, g, i, *, normalize=True, scale=None):
     requires a gradient (training), a CUDA tensor goes through the autograd
     Function ``MLSTMChunk`` (the kernel forward, the plain recurrence's
     backward) and a CPU tensor through ``linear_recurrence``, which
-    autograd differentiates directly."""
+    autograd differentiates directly.  Under ``train_sp`` it raises by
+    name: the kernel starts every call from the zero state, and a rank's
+    columns need the earlier ranks' (ROADMAP A.15.3b)."""
+    shd.require_no_ssm("mlstm")
     return mlstm_chunk(q, k, v, g, i, normalize=normalize, scale=scale)
 
 

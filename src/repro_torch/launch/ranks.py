@@ -15,6 +15,10 @@ reference's ``tests/sharded`` payloads, and run on gloo in the CPU tests:
   * ``zero3_steps``    — the same steps under a ZeRO-3 layout
     (``train_fsdp`` on a mesh with a model axis), the state sharded;
   * ``zero3_trainer``  — a ZeRO-3 ``Trainer`` run with checkpoints;
+  * ``sp_collectives`` — the sequence collectives of ``train_sp`` and
+    their gradients, ``sp_attention`` — ``attention_sp`` on each rank's
+    columns, ``sp_ring_ce`` — the vocab-ring CE and its gradients,
+    ``sp_raises`` — what the SSM archs raise under ``train_sp``;
   * ``cutoff_sgd``     — ``launch.cutoff_sgd.train`` on the ranks;
   * ``several``        — several of these in one process group.
 
@@ -26,6 +30,7 @@ from __future__ import annotations
 
 import os
 import pickle
+import sys
 import tempfile
 
 import numpy as np
@@ -48,6 +53,12 @@ def _entry(rank, fn, world_size, init_method, device, args, kwargs,
         dist.destroy_process_group()
     with open(os.path.join(out_dir, f"{rank}.pkl"), "wb") as f:
         pickle.dump(result, f)
+    # the result is written: end here, without the interpreter's teardown,
+    # in which a gloo rank has now and then aborted ("terminate called
+    # without an active exception") after writing a complete result
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 
 
 def spawn(fn, world_size: int, *args, init_method: str, device="cpu",
@@ -151,15 +162,20 @@ def _state_bytes(state):
 
 def zero3_steps(cfg, params_np, batches, mask_agg, lr, shape, axes, *,
                 zero1=False, grad_accum=1, compress=False, stale_decay=None,
-                fsdp_gather="wsc", optimizer="adamw"):
-    """``train_steps`` under ``make_layout(mesh, "train_fsdp")`` on a mesh
-    of ``shape`` over ``axes``: the state is cut into this rank's shards
-    (``launch.train.shard_state``), each step takes this rank's rows of
-    the global batch (the batch over the whole mesh), the final state is
-    gathered back.  ``optimizer``: "adamw" (fused) or "sgd" (plain; at
-    lr 1 a step's parameters change by its gradient).  Returns (per-step metrics as floats, the final params
-    as numpy, {"state_bytes": this rank's resident params, m and v in
-    bytes, "collectives": the calls a step made by kind})."""
+                fsdp_gather="wsc", optimizer="adamw", mode="train_fsdp",
+                knobs=None):
+    """``train_steps`` under ``make_layout(mesh, mode)`` (``train_fsdp``,
+    or ``train_sp``) on a mesh of ``shape`` over ``axes``: the state is
+    cut into this rank's shards (``launch.train.shard_state``), each step
+    takes this rank's rows of the global batch (over the layout's dp
+    axes: under ``train_fsdp`` the whole mesh; under ``train_sp`` the
+    ranks of a model axis share their rows, and the forward takes each
+    one's columns), the final state is gathered back.  ``optimizer``:
+    "adamw" (fused) or "sgd" (plain; at lr 1 a step's parameters change
+    by its gradient); ``knobs``: more ``perf.knobs`` (``ce_impl``,
+    ``attn_halo``).  Returns (per-step metrics as floats, the final
+    params as numpy, {"state_bytes": this rank's resident params, m and v
+    in bytes, "collectives": the calls a step made by kind})."""
     from repro_torch import optim
     from repro_torch.dist import sharding as shd
     from repro_torch.launch.train import (_split, gather_state,
@@ -167,7 +183,7 @@ def zero3_steps(cfg, params_np, batches, mask_agg, lr, shape, axes, *,
     from repro_torch.perf.knobs import use_knobs
 
     mesh = make_mesh(shape, axes)
-    lay = shd.make_layout(mesh, "train_fsdp")
+    lay = shd.make_layout(mesh, mode)
     R, r = mesh.size(lay.dp), mesh.index(lay.dp)
     opt = (optim.adamw(lr, fused=True) if optimizer == "adamw"
            else optim.sgd(lr))
@@ -180,7 +196,8 @@ def zero3_steps(cfg, params_np, batches, mask_agg, lr, shape, axes, *,
     state = shard_state({"params": params, "opt": opt.init(params)}, plan)
     del params
     resident = _state_bytes(state) if optimizer == "adamw" else None
-    calls = {"all_gather": 0, "reduce_scatter": 0, "all_reduce": 0}
+    calls = {"all_gather": 0, "reduce_scatter": 0, "all_reduce": 0,
+             "all_to_all_single": 0, "batch_isend_irecv": 0}
     real = {k: getattr(dist, k) for k in calls}
 
     def counting(name):
@@ -190,7 +207,8 @@ def zero3_steps(cfg, params_np, batches, mask_agg, lr, shape, axes, *,
         return call
 
     metrics, made = [], []
-    with shd.use_layout(lay), use_knobs(fsdp_gather=fsdp_gather):
+    with shd.use_layout(lay), use_knobs(fsdp_gather=fsdp_gather,
+                                        **(knobs or {})):
         stale = (step.zeros_grad(state["params"]), torch.zeros(()))
         for b in batches:
             cut = {k: b[k] for k in ("weights", "mask") if k in b}
@@ -219,9 +237,11 @@ def zero3_steps(cfg, params_np, batches, mask_agg, lr, shape, axes, *,
 
 def zero3_trainer(cfg, params_np, shape, axes, n_steps, ckpt_dir, *,
                   zero1=False, mask_agg="psum", ckpt_every=2,
-                  stale_decay=None, n_workers=4, seq=16, batch=8):
-    """A ``Trainer`` under a ZeRO-3 layout on a mesh of ``shape`` over
-    ``axes`` (``shape=None``: the one-process trainer, no layout):
+                  stale_decay=None, n_workers=4, seq=16, batch=8,
+                  mode="train_fsdp"):
+    """A ``Trainer`` under a ZeRO-3 layout (``mode``: ``train_fsdp`` or
+    ``train_sp``) on a mesh of ``shape`` over ``axes`` (``shape=None``:
+    the one-process trainer, no layout):
     first-k (k = ``n_workers`` - 1) over a seeded ``ClusterSim`` on the
     lead rank, stale reuse at ``stale_decay`` when given.  It restores
     from ``ckpt_dir`` when that holds a checkpoint (the timer advanced to
@@ -235,12 +255,12 @@ def zero3_trainer(cfg, params_np, shape, axes, n_steps, ckpt_dir, *,
                                              StaleReuseController)
     from repro_torch.data.pipeline import SyntheticTokens
     from repro_torch.dist import sharding as shd
-    from repro_torch.launch.train import (Trainer, gather_state,
+    from repro_torch.launch.train import (Trainer, _dp, gather_state,
                                           make_train_step)
 
     lay = (shd.LOCAL if shape is None
-           else shd.make_layout(make_mesh(shape, axes), "train_fsdp"))
-    lead = shape is None or lay.mesh.index(lay.dp) == 0
+           else shd.make_layout(make_mesh(shape, axes), mode))
+    lead = shape is None or _dp(lay).lead
     opt = optim.adamw(3e-3, fused=True)
     step = make_train_step(cfg, opt, mask_agg=mask_agg, zero1=zero1,
                            stale_reuse=stale_decay is not None)
@@ -276,6 +296,158 @@ def zero3_trainer(cfg, params_np, shape, axes, n_steps, ckpt_dir, *,
         out = full()
     return dict(out, losses=[h["loss"] for h in tr.history], step=tr.step,
                 restored=restored)
+
+
+def _sp_layout():
+    """``train_sp`` on a (1, R) ("data", "model") mesh of every rank:
+    (the layout, this rank's index on the model axis)."""
+    from repro_torch.dist import sharding as shd
+
+    mesh = make_mesh((1, dist.get_world_size()), ("data", "model"))
+    return shd.make_layout(mesh, "train_sp"), mesh.index(("model",))
+
+
+def _grad_of(fn, inputs, cot):
+    """(fn(*inputs), the inputs' gradients for the cotangent ``cot``), as
+    numpy; ``inputs`` and ``cot`` are numpy."""
+    xs = [torch.from_numpy(np.array(a)).requires_grad_(True)
+          for a in inputs]
+    y = fn(*xs)
+    gs = torch.autograd.grad(y, xs, torch.from_numpy(np.array(cot)))
+    return y.detach().numpy(), [g.numpy() for g in gs]
+
+
+def sp_collectives(data):
+    """Each sequence collective of ``dist.collectives`` on this rank's
+    piece of ``data`` (numpy, the same on every rank, one cotangent a
+    rank; ``tests/test_torch_sp_collectives.py`` builds it) under
+    ``train_sp`` on (1, R): {name: (output, [input gradient])}."""
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist import sharding as shd
+
+    lay, s = _sp_layout()
+    T = lay.n_shards
+    x = data["x"]
+    n = x.shape[1] // T
+    mine = x[:, s * n:(s + 1) * n]
+    rows = data["w"].shape[0] // T
+    runs = {
+        "gather": (lambda t: C.seq_gather(t, 1), [mine],
+                   data["cot_gather"][s]),
+        "act_gather": (lambda t: shd.act(t, "dp", None, None), [mine],
+                       data["cot_gather"][s]),
+        "act_slice": (lambda t: shd.act(t, "dp", "sp", None, seq="full"),
+                      [x], data["cot_gather"][s][:, :n]),
+        "ring": (C.ring_shift, [data["blocks"][s]], data["cot_ring"][s]),
+        "a2a": (C.all_to_all, [data["a2a"][s]], data["cot_a2a"][s]),
+        "vocab": (C.vocab_block, [data["w"][s * rows:(s + 1) * rows]],
+                  data["cot_vocab"][s]),
+        "sum": (C.model_sum, [data["v"][s]], data["cot_v"][s]),
+        "mean": (C.model_mean, [data["v"][s]], data["cot_v"][s]),
+    }
+    for hops in (1, 2):
+        m = min(hops, s)
+        runs[f"halo{hops}"] = (lambda t, h=hops: C.halo(t, h, 1), [mine],
+                               data[f"cot_halo{hops}"][s][:, :(m + 1) * n])
+    out = {}
+    with shd.use_layout(lay):
+        for name, (fn, inputs, cot) in runs.items():
+            out[name] = _grad_of(fn, inputs, cot)
+    return out
+
+
+def sp_attention(cases):
+    """``models.attention.attention_sp`` under ``train_sp`` on (1, R): for
+    each case (full numpy q (B, S, H, hd), k/v (B, Sk, KV, hd), the
+    output's cotangent, ``causal``, ``window``, ``halo``), this rank's
+    rows of the output and the gradients of its q, k and v columns, and
+    the point-to-point batches the case made."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models.attention import attention_sp
+    from repro_torch.perf.knobs import use_knobs
+
+    lay, s = _sp_layout()
+    T = lay.n_shards
+    out, sends = [], [0]
+    real = dist.batch_isend_irecv
+
+    def counted(ops_):
+        sends[0] += 1
+        return real(ops_)
+
+    for c in cases:
+        sends[0] = 0
+        q, k, v = c["q"], c["k"], c["v"]
+        n, nk = q.shape[1] // T, k.shape[1] // T
+        qpos = torch.arange(s * n, (s + 1) * n).expand(q.shape[0], n)
+
+        def fn(ql, kl, vl, c=c, qpos=qpos):
+            return attention_sp(ql, kl, vl, qpos, causal=c["causal"],
+                                window=c["window"])
+
+        dist.batch_isend_irecv = counted
+        try:
+            with shd.use_layout(lay), use_knobs(attn_halo=c["halo"]):
+                y, g = _grad_of(
+                    fn, [q[:, s * n:(s + 1) * n], k[:, s * nk:(s + 1) * nk],
+                         v[:, s * nk:(s + 1) * nk]],
+                    c["cot"][:, s * n:(s + 1) * n])
+        finally:
+            dist.batch_isend_irecv = real
+        out.append((y, g, sends[0]))
+    return out
+
+
+def sp_ring_ce(cases):
+    """``models.model.ring_ce_sum`` under ``train_sp`` on (1, R), the
+    parameters full (the vocab block is this rank's slice of the head):
+    for each case (cfg, params as numpy, full x (B, S, D), labels (B, S),
+    weights (B,) or None), (the sum, this rank's columns' dx, its part of
+    the head's gradient, full-shaped)."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models import model as M
+
+    lay, s = _sp_layout()
+    T = lay.n_shards
+    out = []
+    for cfg, params_np, x, labels, weights in cases:
+        params = tree.map(lambda a: torch.from_numpy(np.array(a)),
+                          params_np)
+        head = (params["embed"]["table"] if cfg.tie_embeddings
+                else params["lm_head"]["w"]).requires_grad_(True)
+        n = x.shape[1] // T
+        xl = torch.from_numpy(np.array(x[:, s * n:(s + 1) * n]))
+        xl.requires_grad_(True)
+        lab = torch.from_numpy(np.array(labels[:, s * n:(s + 1) * n]))
+        w = None if weights is None else torch.from_numpy(weights)
+        with shd.use_layout(lay):
+            loss = M.ring_ce_sum(cfg, params, xl, lab, w)
+        dx, dh = torch.autograd.grad(loss, (xl, head))
+        out.append((float(loss), dx.numpy(), dh.numpy()))
+    return out
+
+
+def sp_raises(cfgs):
+    """The train forward of each config (seeded weights, a batch of 2 x 8)
+    under ``train_sp`` on (1, R): the message of what it raises
+    (``NotImplementedError`` expected), or None."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models import model as M
+
+    lay, _ = _sp_layout()
+    out = []
+    for cfg in cfgs:
+        params = M.init_model(cfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+        batch = {"tokens": torch.zeros(2, 8, dtype=torch.long),
+                 "positions": torch.arange(8).expand(2, 8)}
+        try:
+            with shd.use_layout(lay):
+                M.forward(cfg, params, batch)
+            out.append(None)
+        except NotImplementedError as e:
+            out.append(str(e))
+    return out
 
 
 def cutoff_sgd(argv, cfg=None, fit_steps=300):

@@ -38,6 +38,14 @@ The update is the optimizer's: with ``optim.adamw(..., fused=True)`` one
 Hopper ``fused_adam`` launch updates every parameter and both moments in
 place, the port's counterpart of the JAX step's donated state.
 
+Under ``train_sp`` (the reference's sequence parallelism) the batch is
+split over the dp axes alone, each rank of a model axis holding the same
+rows at full length, and the forward takes each rank's columns of the
+sequence; the parameters are ZeRO-3 over the model axis as under
+``train_fsdp``.  Each rank's gradient is its columns' part of its
+workers' gradients, and the same buffer, kernel pass and reduce-scatter
+sum those parts.
+
 The ``Trainer`` is the host-side loop: controller -> bit array ->
 weights (or the bit array itself under ``mask_agg="psum"``), simulated
 (or measured) per-worker step times, the stale-gradient buffer, elastic
@@ -75,23 +83,34 @@ def make_loss_fn(cfg, aux_coef: float = 0.01):
     ``aux_coef`` times the auxiliary loss.  The CE is dense, or, where the
     active knobs ask ``ce_chunk > 0`` (``perf.knobs``), the vocab-chunked
     ``models.model.chunked_ce_sum`` from the final hidden state.
-    ``ce_impl="ring"`` is the vocab ring of ``train_sp`` (not ported yet:
-    it raises there); under every layout the port runs its sum is the
-    dense one, so the dense path computes it, as the reference's ring
-    does outside ``train_sp``."""
+    ``ce_impl="ring"`` is ``models.model.ring_ce_sum``: the vocab ring
+    under ``train_sp``, and the dense sum under every other layout, as
+    the reference's ring computes it outside ``train_sp``.
+
+    Under ``train_sp`` the batch is this rank's rows at full length and
+    the CE is its columns' (``labels`` cut as the forward cuts the
+    tokens), summed over the model axis (``collectives.model_sum``; the
+    ring sums its own): every rank of a model axis holds the loss of the
+    rows they share, and its gradient is its columns' part."""
     def loss_fn(params, batch, normalizer):
         w = batch.get("weights")
         k = knobs()
         if k.ce_impl == "ring":
             shd.require_data_parallel(shd.layout(), "ce_impl='ring'")
-        if k.ce_impl != "ring" and k.ce_chunk > 0:
+        labels = shd.seq_shard(batch["labels"])
+        if k.ce_impl == "ring":
             x, _, aux = M.forward(cfg, params, batch, mode="train",
                                   head=False)
-            ce_sum = M.chunked_ce_sum(cfg, params, x, batch["labels"], w,
-                                      k.ce_chunk)
+            ce_sum = M.ring_ce_sum(cfg, params, x, labels, w)
+        elif k.ce_chunk > 0:
+            x, _, aux = M.forward(cfg, params, batch, mode="train",
+                                  head=False)
+            ce_sum = collectives.model_sum(
+                M.chunked_ce_sum(cfg, params, x, labels, w, k.ce_chunk))
         else:
             logits, _, aux = M.forward(cfg, params, batch, mode="train")
-            ce_sum = M._ce_sum_dense(logits, batch["labels"], w)
+            ce_sum = collectives.model_sum(
+                M._ce_sum_dense(logits, labels, w))
         loss = ce_sum / normalizer
         return loss + aux_coef * aux, {"ce": loss, "aux": aux}
     return loss_fn
@@ -143,17 +162,28 @@ class _DP(NamedTuple):
     size: int        # R, the dp ranks
     index: int       # r, this rank's index along the dp axes
     group: Any       # their process group
+    # every rank of the step: the dp axes, and under train_sp the model
+    # axis, whose ranks share their rows; the lead decides for them all
+    share: tuple = ()
+
+    @property
+    def lead(self) -> bool:
+        return self.mesh.index(self.share) == 0
 
 
 def _dp(lay) -> Optional[_DP]:
-    """The dp ranks of a layout with dp axes, else None; a layout this
-    slice does not run raises by name."""
+    """The dp ranks of a layout with dp axes (or of ``train_sp``, whose
+    model axis shares a decision even without them), else None; a layout
+    this slice does not run raises by name."""
     shd.require_data_parallel(lay, "the train step")
-    if lay.mesh is None or not lay.dp:
+    sp = shd.seq_parallel(lay)
+    if lay.mesh is None or not (lay.dp or sp):
         return None
     mesh, axes = lay.mesh, tuple(lay.dp)
+    share = axes + ((lay.model_axis,) if sp else ())
     return _DP(mesh, axes, mesh.size(axes), mesh.index(axes),
-               mesh.group(axes))
+               mesh.group(axes), tuple(a for a in mesh.axis_names
+                                       if a in share))
 
 
 def _value_and_grad(loss_fn, params, batch, norm, z=None):
@@ -279,7 +309,8 @@ def make_train_step(cfg, optimizer: optim.Optimizer, *,
 
     def normalizer_of(batch, R=1):
         """The loss normalizer; ``weights`` is the global vector, the
-        tokens R ranks' share of the batch."""
+        tokens R ranks' share of the batch (under ``train_sp`` at full
+        length: the global tokens, not a rank's columns)."""
         w = batch.get("weights")
         B, S = batch["tokens"].shape
         if w is None:
@@ -431,10 +462,10 @@ def make_train_step(cfg, optimizer: optim.Optimizer, *,
         return list(both.unbind())
 
     def weights_grads_of(params, batch, dp, z=None):
-        if dp is None:
+        if dp is None and z is None:
             return grads_of(params, batch, normalizer_of(batch))
-        R, r = dp.size, dp.index
-        if cfg.family == "moe":
+        R, r = (1, 0) if dp is None else (dp.size, dp.index)
+        if cfg.family == "moe" and dp is not None:
             raise NotImplementedError(
                 "the weights path of an MoE arch across dp ranks: its aux "
                 "loss is the whole batch's routing, which no sum of the "
@@ -497,6 +528,13 @@ def make_train_step(cfg, optimizer: optim.Optimizer, *,
             losses.append(loss)
             ces.append(ce)
             auxs.append(aux)
+        # one sum-mode kernel pass over the rank's rows, then the
+        # reduce-scatter over the model axis.  Under train_sp a rank's row
+        # w holds worker w's gradient from this rank's columns only; the
+        # reduce-scatter adds the columns' parts of ONE worker's gradient
+        # (the ranks of a model axis hold the same workers), so masking
+        # each row first is still the masked mean across workers
+        # (ROADMAP C.24's argument)
         agg = collectives.masked_grad_mean(buf, mask)
         mask_dev = mask.to(buf.buf.device, non_blocking=True)
         local_dev = mask_dev[r * W:(r + 1) * W]
@@ -732,8 +770,9 @@ class Trainer:
     Across data-parallel ranks (an active layout with dp axes, installed
     by ``dist.sharding.use_layout``): every rank runs this loop and takes
     its own rows of each global batch.  Only the lead rank (index 0 along
-    the dp axes) holds the ``controller`` and the ``timer`` (the others
-    pass None for both) and decides.  The (W,) vector the step aggregates
+    the dp axes, and under ``train_sp`` along the model axis too, whose
+    ranks share their rows) holds the ``controller`` and the ``timer``
+    (the others pass None for both) and decides.  The (W,) vector the step aggregates
     with (the bit array or the anytime contributions), the cutoff c, the
     step's simulated time and the stale decay reach the other ranks by
     ONE device broadcast a step, before the step (stream-ordered on NCCL:
@@ -982,8 +1021,8 @@ class Trainer:
         -1]``: the (n,) vector the step aggregates with (the bit array or
         the anytime contributions), the cutoff and the step's simulated
         time, each exact in f64.  The other ranks take it as sent."""
-        mesh, r = dp.mesh, dp.index
-        if r == 0:
+        mesh, lead = dp.mesh, dp.lead
+        if lead:
             decay = self._stale_decay
             msg = np.concatenate([
                 contrib, [c, iter_time, -1.0 if decay is None else decay]
@@ -995,9 +1034,9 @@ class Trainer:
             vec = host.to(mesh.device, non_blocking=True)
         else:
             vec = torch.empty(n + 3, dtype=torch.float64, device=mesh.device)
-        dist.broadcast(vec, src=mesh.global_rank(dp.axes, 0),
-                       group=dp.group)
-        if r == 0:
+        dist.broadcast(vec, src=mesh.global_rank(dp.share, 0),
+                       group=mesh.group(dp.share))
+        if lead:
             return c, contrib, iter_time
         msg = vec.cpu().numpy()
         self._decay_seen = None if msg[n + 2] < 0 else float(msg[n + 2])
@@ -1006,7 +1045,7 @@ class Trainer:
     def run(self, n_steps: int, *, eval_fn=None, eval_every: int = 0,
             verbose: bool = False):
         dp = _dp(shd.layout())
-        lead = dp is None or dp.index == 0
+        lead = dp is None or dp.lead
         if not lead and (self.controller is not None
                          or self.timer is not None):
             raise ValueError(
@@ -1038,7 +1077,7 @@ class Trainer:
                    verbose, dp=None):
         """One step of :meth:`run`: cutoff, bit array, train step, observe,
         and the drains and checkpoints that fall on it."""
-        lead = dp is None or dp.index == 0
+        lead = dp is None or dp.lead
         if lead:
             self._sync_membership()
         n = self.n_workers

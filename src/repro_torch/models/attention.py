@@ -1,18 +1,26 @@
-"""Attention: projections, a plain core, and one-token decode.
+"""Attention: projections, a plain core, the sequence-parallel wrapper
+and one-token decode.
 
-Twin of ``repro.models.attention`` on one device (no sequence sharding).
-Prefill and decode reach the Hopper flash-attention kernel through
-``kernels.ops.attention``, training through its autograd Function
-``FlashAttention``; ``attn_core`` is the plain path with explicit positions
-and logit softcap, for the cases the kernel does not take.
+Twin of ``repro.models.attention``.  Prefill and decode reach the Hopper
+flash-attention kernel through ``kernels.ops.attention``, training
+through its autograd Function ``FlashAttention``; ``attn_core`` is the
+plain path with explicit positions and logit softcap, for the cases the
+kernel does not take.  ``attention_sp`` is the reference's
+sequence-parallel wrapper: under ``train_sp`` the queries stay this
+rank's columns and the keys and values are gathered over the model axis
+(or, with the ``attn_halo`` knob on a sliding-window layer, fetched from
+the ranks the window reaches), still through the flash kernel.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.dist import collectives as C
+from repro_torch.dist import sharding as shd
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import FlashAttention
 from repro_torch.models import layers as L
+from repro_torch.perf.knobs import knobs
 
 NEG_INF = -1e30
 
@@ -78,10 +86,63 @@ def attention(q, k, v, *, causal=True, window=0, softcap=0.0):
         pos = torch.arange(S, device=q.device)
         return attn_core(q, k, v, pos.expand(q.shape[0], S), pos,
                          causal=causal, window=window, softcap=softcap)
+    return _flash(q, k, v, causal, window)
+
+
+def _flash(q, k, v, causal, window):
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal, window)
     return ops.attention(q, k, v, causal=causal, window=window)
+
+
+def attention_sp(q, k, v, qpos=None, *, causal=True, window=0,
+                 softcap=0.0):
+    """Train and prefill attention under the active layout.
+
+    Outside ``train_sp`` it is :func:`attention` over a fresh sequence.
+    Under ``train_sp`` q (B, S_loc, H, hd) is this rank's columns, at
+    global positions s S_loc + i, and k/v (B, Sk_loc, KV, hd) its columns
+    of the keys (this sequence's own, or the encoder output's for
+    cross-attention); ``qpos`` (B, S_loc) are the queries' global
+    positions, read only with a logit softcap (the plain ``attn_core``).
+
+      * Causal: k and v are gathered over the model axis in one
+        all-gather and cut to their first (s + 1) S_loc keys, so the
+        kernel's aligned-suffix rule (query row i at i + Sk - Sq, ROADMAP
+        C.1) puts row i at s S_loc + i.  With the ``attn_halo`` knob on a
+        sliding-window layer whose window reaches h = ceil(window /
+        S_loc) < T - 1 chunks back, the rank instead receives the min(h,
+        s) chunks before its own by point-to-point sends, and the kernel
+        gets those and its own: the chunks before the first rank, which
+        the reference fills with zeros and masks, are never passed.
+      * Not causal (whisper's encoder, cross-attention over the gathered
+        encoder output): every key is visible; all of them are passed
+        (Sq <= Sk, C.19).
+
+    The gathers' and sends' backwards (a reduce-scatter, the reverse
+    sends) hand each rank the gradient of its own k/v columns.
+    """
+    if not shd.seq_parallel():
+        return attention(q, k, v, causal=causal, window=window,
+                         softcap=softcap)
+    ax = C.model_axis()
+    S_loc, s, T = k.shape[1], ax.index, ax.size
+    hops = -(-window // S_loc) if window > 0 else 0
+    if knobs().attn_halo and causal and window > 0 and hops < T - 1:
+        kv = C.halo(torch.stack([k, v]), hops, dim=2)
+        start = (s - min(hops, s)) * S_loc
+    else:
+        kv = C.seq_gather(torch.stack([k, v]), dim=2)
+        if causal and s + 1 < T:
+            kv = kv.narrow(2, 0, (s + 1) * S_loc)
+        start = 0
+    k, v = kv[0], kv[1]
+    if softcap:
+        kpos = torch.arange(start, start + k.shape[1], device=q.device)
+        return attn_core(q, k, v, qpos, kpos, causal=causal, window=window,
+                         softcap=softcap)
+    return _flash(q, k, v, causal, window)
 
 
 def decode_position(pos, device):

@@ -67,8 +67,12 @@ def _attn_sublayer(cfg, p, x, ctx, cache, *, window: int,
                                   softcap=cfg.attn_logit_softcap)
         cache = {"k": ck, "v": cv}
     else:
-        y = A.attention(q, k, v, causal=causal, window=window,
-                        softcap=cfg.attn_logit_softcap)
+        # under train_sp q is this rank's columns at their global
+        # positions and k/v are gathered; elsewhere it is attention()
+        qpos = (ctx.positions[0] if ctx.positions.dim() == 3
+                else ctx.positions)
+        y = A.attention_sp(q, k, v, qpos, causal=causal, window=window,
+                           softcap=cfg.attn_logit_softcap)
         cache = {"k": k, "v": v} if ctx.mode == "prefill" else None
     y = y.reshape(B, Sx, cfg.qkv_dim) @ p["wo"]
     if "bo" in p:
@@ -80,7 +84,9 @@ def _cross_attn_sublayer(cfg, p, x, ctx, cache):
     """Whisper's cross-attention: q from x, k/v from the encoder output
     (train, prefill; prefill caches them as ``{"ck", "cv"}``) or from that
     cache (decode), every key visible: the flash kernel non-causally,
-    Sq <= Se.  Returns (y, cache')."""
+    Sq <= Se.  Under ``train_sp`` the encoder output is this rank's
+    columns and its k/v are gathered (``attention_sp``).  Returns (y,
+    cache')."""
     B, Sx, _ = x.shape
     q = x @ p["wq"]
     if "bq" in p:
@@ -96,7 +102,7 @@ def _cross_attn_sublayer(cfg, p, x, ctx, cache):
         shape = (B, enc.shape[1], cfg.n_kv_heads, cfg.head_dim)
         k, v = k.reshape(shape), v.reshape(shape)
         cache = {"ck": k, "cv": v} if ctx.mode == "prefill" else None
-    y = A.attention(q, k, v, causal=False)
+    y = A.attention_sp(q, k, v, causal=False)
     y = y.reshape(B, Sx, cfg.qkv_dim) @ p["wo"]
     if "bo" in p:
         y = y + p["bo"]
@@ -273,7 +279,14 @@ def block_forward(cfg, spec: LayerSpec, p, x, ctx: Ctx, cache):
     # outside a ZeRO-3 step): the reference's use sites of attn, cross,
     # mamba, the mLSTM and sLSTM weights, the MLP and the shared experts
     # all lie in this block
-    p = shd.use_weight(p)
+    if spec.kind == "attn_moe" and shd.seq_parallel():
+        # expert parallelism: the bank stays this rank's experts
+        moe = dict(p["moe"])
+        bank = moe.pop("experts")
+        p = shd.use_weight(dict(p, moe=moe))
+        p["moe"] = dict(p["moe"], experts=shd.use_shard(bank))
+    else:
+        p = shd.use_weight(p)
     if spec.kind == "mlstm":
         x, cache = _mlstm_block(cfg, p, x, ctx, cache)
     elif spec.kind == "slstm":

@@ -17,6 +17,13 @@ position tables where they are used, and each block runs under
 ``dist.sharding.remat``, so its gathered weights are gathered again in
 the backward instead of kept.  Outside one every use site is the
 identity.
+
+Under ``train_sp`` (``dist.sharding.seq_parallel``) the forward is given
+the full sequence of this rank's rows and takes its own columns of it
+(tokens, positions, the patch merge's inputs, whisper's frames), so every
+activation is this rank's columns; attention gathers the keys
+(``attention.attention_sp``), the MoE exchanges tokens with the experts'
+owners, and :func:`ring_ce_sum` streams the vocab round the model ring.
 """
 from __future__ import annotations
 
@@ -292,13 +299,17 @@ def check_positions(positions):
 def _run_encoder(cfg, params, frames):
     """Whisper's encoder over precomputed frame embeddings (B, Se, D),
     cast to the config's dtype: learned positions, non-causal blocks in
-    train mode (no caches), the final norm."""
+    train mode (no caches), the final norm.  Under ``train_sp`` it runs
+    on this rank's columns of the frames, at their global positions, and
+    returns its columns of the output."""
     enc = params["encoder"]
     pos_table = shd.use_weight(enc["pos_table"])
-    x = frames.to(_dtype(cfg)) + pos_table[:frames.shape[1]]
-    B, Se = frames.shape[:2]
+    start, Se = shd.seq_span(frames.shape[1])
+    frames = frames.narrow(1, start, Se)
+    x = frames.to(_dtype(cfg)) + pos_table[start:start + Se]
+    B = frames.shape[0]
     ctx = Ctx(mode="train", positions=torch.arange(
-        Se, device=frames.device).expand(B, Se))
+        start, start + Se, device=frames.device).expand(B, Se))
     for spec, p in zip(encoder_layer_specs(cfg), enc["layers"]):
         x, _, _ = shd.remat(block_forward, cfg, spec, p, x, ctx, None)
     return L.apply_norm(cfg, shd.use_weight(enc["final_norm"]), x)
@@ -321,6 +332,10 @@ def forward(cfg, params, batch, mode: str = "train", caches=None,
     decode step reads a value off the card, so a CUDA graph of it serves
     every position.
 
+    Under ``train_sp`` the batch holds this rank's rows, full length;
+    the forward takes its columns of them (:func:`seq_columns`) and
+    returns those columns' logits (B, S/T, V) or hidden state.
+
     Returns (logits, caches, aux): train gives the full (B, S, V) logits
     and no caches; prefill gives the last position's logits (B, 1, V) and
     fresh caches; decode the next logits and the updated caches (KV caches
@@ -338,6 +353,13 @@ def forward(cfg, params, batch, mode: str = "train", caches=None,
     positions = batch["positions"]
     if mode != "decode":
         check_positions(positions)
+    if shd.seq_parallel():
+        if mode != "train":
+            raise ValueError(f"train_sp runs the train forward; got "
+                             f"mode {mode!r}")
+        batch = seq_columns(batch)
+        positions = batch["positions"]
+    # under train_sp the tokens are this rank's columns: act keeps them
     x = shd.act(embed_tokens(cfg, params, batch["tokens"], batch),
                 "dp", "sp", None)
     encoder_out = None
@@ -369,20 +391,109 @@ def forward(cfg, params, batch, mode: str = "train", caches=None,
             None if mode == "train" else new_caches, aux)
 
 
+def seq_columns(batch):
+    """This rank's columns of a full-length batch under ``train_sp``:
+    tokens, labels, the patch merge's ``patch_embeds`` and ``image_mask``
+    on dim 1, positions on their last dim (M-RoPE's (3, B, S) on dim 2);
+    whisper's ``frames`` stay whole for the encoder, which takes its own
+    columns of them; the per-example ``weights`` and anything else stay
+    as they are.  The batch itself under other layouts."""
+    out = dict(batch)
+    for k in ("tokens", "labels", "patch_embeds", "image_mask"):
+        if k in out:
+            out[k] = shd.seq_shard(out[k], 1)
+    pos = out["positions"]
+    out["positions"] = shd.seq_shard(pos, pos.dim() - 1)
+    return out
+
+
 def ring_ce_sum(cfg, params, x, labels, weights=None):
     """Sum over tokens of the weighted CE of the final hidden ``x`` (B, S,
-    D): the reference's vocab-ring fused CE.  Outside ``train_sp`` (LOCAL,
-    and the data-parallel layouts, where each rank holds its own rows)
-    that is the dense sum over the head's logits, as the reference's local
-    branch computes it.  The ring itself raises: it waits for the
-    ``train_sp`` slice."""
+    D): the reference's vocab-ring fused CE.
+
+    Outside ``train_sp`` (LOCAL, and the data-parallel layouts, where each
+    rank holds its own rows) that is the dense sum over the head's logits,
+    as the reference's local branch computes it.  Under ``train_sp``
+    ``x`` and ``labels`` are this rank's columns; the head stays
+    vocab-sharded: rank s starts from vocab block s (``dist.sharding.
+    use_shard``: a tied head's ZeRO-3 shard of the (V, D) table is that
+    block; an untied head's shard is its (D/T, V) rows, re-blocked once
+    by one all-to-all, ``collectives.vocab_block``), and the blocks go
+    round the model ring (``collectives.ring_shift``) while the rank
+    streams its tokens through running (max, sum-exp, label-logit)
+    accumulators in f32.  Neither the (V, D) table nor any (B, S, V)
+    logits tensor is built.  The result is summed over the model axis,
+    the ranks that share these rows (``collectives.model_sum``); a dp
+    rank's rows are other workers', whose sums the step adds as it adds
+    their gradients.
+    """
     lay = shd.layout()
-    if (lay.mesh is not None and lay.mode == "train_sp"
-            and lay.model_axis is not None):
-        raise NotImplementedError(
-            "ring_ce_sum's vocab ring under train_sp is not ported yet: it "
-            f"waits for {shd.WAITS_FOR['train_sp']}")
-    return _ce_sum_dense(lm_logits(cfg, params, x), labels, weights)
+    if not shd.seq_parallel(lay):
+        return _ce_sum_dense(lm_logits(cfg, params, x), labels, weights)
+    from repro_torch.dist import collectives as C
+
+    ax = C.model_axis(lay)
+    T, V, D = ax.size, cfg.vocab_size, x.shape[-1]
+    if V % T:
+        raise ValueError(f"ring_ce_sum: a vocab of {V} does not split over "
+                         f"{T} ranks")
+    v_loc = V // T
+    if cfg.tie_embeddings:
+        blk = shd.use_shard(params["embed"])["table"]      # (V/T, D)
+        want = (v_loc, D)
+    else:
+        w = shd.use_shard(params["lm_head"])["w"]          # (D/T, V)
+        if tuple(w.shape) != (D // T, V):
+            raise ValueError(f"ring_ce_sum: the untied head's shard is "
+                             f"{tuple(w.shape)}, not its (D/T, V) = "
+                             f"{(D // T, V)} rows")
+        blk = C.vocab_block(w, lay)                        # (D, V/T)
+        want = (D, v_loc)
+    if tuple(blk.shape) != want:
+        raise ValueError(f"ring_ce_sum: the head's vocab block is "
+                         f"{tuple(blk.shape)}, want {want}")
+    xf = x.reshape(-1, D).float()
+    labf = labels.reshape(-1).long()
+    run = _ce_start(xf.shape[0], x.device)
+    for r in range(T):
+        wb = blk.float()
+        run = _ce_block(run, xf @ (wb.T if cfg.tie_embeddings else wb), labf,
+                        ((ax.index + r) % T) * v_loc)
+        if r < T - 1:
+            blk = C.ring_shift(blk, lay)
+    return C.model_sum(_ce_end(run, weights, x.shape[:2]), lay)
+
+
+def _ce_start(n: int, device):
+    """The running (max, sum-exp, label-logit) of ``n`` tokens, f32."""
+    return (torch.full((n,), -1e30, dtype=torch.float32, device=device),
+            torch.zeros((n,), dtype=torch.float32, device=device),
+            torch.zeros((n,), dtype=torch.float32, device=device))
+
+
+def _ce_block(run, logits, labf, off: int):
+    """``run`` with one block of logits (n tokens, the vocab columns
+    ``[off, off + logits.shape[1])``) streamed in."""
+    m_run, s_run, ll = run
+    n = logits.shape[1]
+    m_new = torch.maximum(m_run, torch.max(logits, dim=-1).values)
+    s_run = (s_run * torch.exp(m_run - m_new)
+             + torch.sum(torch.exp(logits - m_new[:, None]), dim=-1))
+    rel = labf - off
+    inr = (rel >= 0) & (rel < n)
+    pick = torch.gather(logits, 1, torch.clamp(rel, 0, n - 1)[:, None])[:, 0]
+    return m_new, s_run, torch.where(inr, pick, ll)
+
+
+def _ce_end(run, weights, shape):
+    """The sum over tokens of the streamed CE, each example's (B, S)
+    tokens weighted by ``weights`` (B,) when given."""
+    m_run, s_run, ll = run
+    ce = (m_run + torch.log(torch.clamp(s_run, min=1e-30))) - ll
+    if weights is not None:
+        B, S = shape
+        ce = ce * weights.float()[:, None].expand(B, S).reshape(-1)
+    return torch.sum(ce)
 
 
 def chunked_ce_sum(cfg, params, x, labels, weights, vchunk: int):
@@ -400,33 +511,17 @@ def chunked_ce_sum(cfg, params, x, labels, weights, vchunk: int):
     # tied: the (V, D) embedding rows; else the (D, V) lm_head
     w = (shd.use_weight(params["embed"])["table"] if cfg.tie_embeddings
          else shd.use_weight(params["lm_head"])["w"])
-    B, S, D = x.shape
-    V = cfg.vocab_size
+    D = x.shape[-1]
     xf = x.reshape(-1, D).float()
     labf = labels.reshape(-1).long()
-    T = xf.shape[0]
-    m_run = torch.full((T,), -1e30, dtype=torch.float32, device=x.device)
-    s_run = torch.zeros((T,), dtype=torch.float32, device=x.device)
-    ll = torch.zeros((T,), dtype=torch.float32, device=x.device)
-    for off in range(0, V, vchunk):
+    run = _ce_start(xf.shape[0], x.device)
+    for off in range(0, cfg.vocab_size, vchunk):
         if cfg.tie_embeddings:
             logits = xf @ w[off:off + vchunk].float().T
         else:
             logits = xf @ w[:, off:off + vchunk].float()
-        n = logits.shape[1]
-        m_new = torch.maximum(m_run, torch.max(logits, dim=-1).values)
-        s_run = (s_run * torch.exp(m_run - m_new)
-                 + torch.sum(torch.exp(logits - m_new[:, None]), dim=-1))
-        m_run = m_new
-        rel = labf - off
-        inr = (rel >= 0) & (rel < n)
-        pick = torch.gather(logits, 1,
-                            torch.clamp(rel, 0, n - 1)[:, None])[:, 0]
-        ll = torch.where(inr, pick, ll)
-    ce = (m_run + torch.log(torch.clamp(s_run, min=1e-30))) - ll
-    if weights is not None:
-        ce = ce * weights.float()[:, None].expand(B, S).reshape(-1)
-    return torch.sum(ce)
+        run = _ce_block(run, logits, labf, off)
+    return _ce_end(run, weights, x.shape[:2])
 
 
 def _ce_sum_dense(logits, labels, weights=None):

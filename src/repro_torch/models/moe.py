@@ -1,12 +1,14 @@
 """Mixture-of-Experts FFN: routing, capacity dispatch, aux loss.
 
-Twin of the no-mesh path of ``repro.models.moe`` (the ``tp == 1`` branch
+Twin of ``repro.models.moe``: the no-mesh path (the ``tp == 1`` branch
 of ``_dispatch_compute_combine``, which its decode takes too, with the
-capacity of B tokens).  The JAX module's expert-parallel branches (the
-``train_sp`` all-to-all, the ``decode_tp`` masked psum) wait for the
-port's ``train_sp`` and ``decode_tp`` slices (ROADMAP A.15.3, A.15.4).  Plain PyTorch throughout, as the
-reference computes MoE outside any Pallas kernel: the expert products are
-batched matmuls, JAX's ``jnp.einsum`` over the banks.
+capacity of B tokens) and the ``train_sp`` expert parallelism (the bank
+sharded over the model axis, each rank routing its own tokens and one
+all-to-all to the experts' owners and back).  The ``decode_tp`` masked
+psum waits for the port's ``decode_tp`` slice (ROADMAP A.15.4).  Plain
+PyTorch throughout, as the reference computes MoE outside any Pallas
+kernel: the expert products are batched matmuls, JAX's ``jnp.einsum``
+over the banks.
 
 Dispatch is sort-based, as in JAX: a stable sort of the (token, slot)
 entries by expert id, each entry's rank within its expert from
@@ -36,6 +38,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import collectives as COLL
+from repro_torch.dist import sharding as shd
 from repro_torch.perf.knobs import knobs
 
 
@@ -138,16 +142,33 @@ def dispatch_plan(topk_i, n_experts: int, capacity: int) -> Plan:
 
 
 def _dispatch_compute_combine(cfg, x_flat, topk_w, topk_i, bank,
-                              capacity: int):
-    """x_flat: (N, D); topk_*: (N, k) -> y (N, D) in x's dtype."""
+                              capacity: int, ax=None):
+    """x_flat: (N, D); topk_*: (N, k) -> y (N, D) in x's dtype.
+
+    With ``ax`` (the model axis of ``train_sp``, T ranks) the bank holds
+    this rank's E/T experts: the (E C, D) buffer, expert-major, is T
+    blocks of E/T experts, block t going to rank t by one all-to-all;
+    the rank runs its experts over the T ranks' slots and the inverse
+    all-to-all brings each block's outputs home (the reference's
+    ``lax.all_to_all`` pair)."""
     N, D = x_flat.shape
     k, e, C = cfg.top_k, cfg.n_experts, capacity
     plan = dispatch_plan(topk_i, e, C)
     zero = x_flat.new_zeros((1, D))
     rows = torch.cat([x_flat[:, None, :].expand(N, k, D).reshape(N * k, D),
                       zero])
-    grouped = torch.index_select(rows, 0, plan.src).reshape(e, C, D)
-    out = _expert_ffn(bank, grouped).reshape(e * C, D)
+    grouped = torch.index_select(rows, 0, plan.src)
+    if ax is None:
+        out = _expert_ffn(bank, grouped.reshape(e, C, D)).reshape(e * C, D)
+    else:
+        T, e_loc = ax.size, e // ax.size
+        recv = COLL.all_to_all(grouped.reshape(T, e_loc * C, D))
+        # (T, E/T, C, D) -> each of this rank's experts over T C slots
+        mine = recv.reshape(T, e_loc, C, D).transpose(0, 1).reshape(
+            e_loc, T * C, D)
+        out = _expert_ffn(bank, mine).reshape(e_loc, T, C, D).transpose(
+            0, 1).reshape(T, e_loc * C, D)
+        out = COLL.all_to_all(out).reshape(e * C, D)
     back = torch.index_select(torch.cat([out, zero]), 0, plan.dst)
     contrib = back.reshape(N, k, D) * topk_w.to(x_flat.dtype)[..., None]
     return torch.sum(contrib, dim=1)
@@ -156,14 +177,32 @@ def _dispatch_compute_combine(cfg, x_flat, topk_w, topk_i, bank,
 def moe_apply(cfg, params, x) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (y (B, S, D), aux f32), the shared experts added.
     The capacity is that of the B * S tokens of the call (a decode step:
-    of B)."""
+    of B).
+
+    Under ``train_sp`` x is this rank's columns and ``params["experts"]``
+    its E/T experts (``blocks.block_forward`` passes the bank's ZeRO-3
+    shard through ``dist.sharding.use_shard``: no gather).  Routing and
+    the capacity are the rank's tokens' (B S/T of them); the router's
+    f_e and p_e are averaged over the model axis before the aux product,
+    as the reference's pmean does (a dp rank's tokens are other workers',
+    each with its own aux in the psum step)."""
     B, S, D = x.shape
     topk_w, topk_i, f_e, p_e = _route(cfg, params["router"], x)
+    ax = None
+    if shd.seq_parallel():
+        ax = COLL.model_axis()
+        bank_e = params["experts"]["w_gate"].shape[0]
+        if cfg.n_experts % ax.size or bank_e * ax.size != cfg.n_experts:
+            raise ValueError(
+                f"expert parallelism over {ax.size} ranks: {cfg.n_experts} "
+                f"experts, a bank of {bank_e} on this rank (its ZeRO-3 "
+                f"shard must be E/T experts on dim 0)")
+        f_e, p_e = COLL.model_mean(f_e), COLL.model_mean(p_e)
     aux = _aux(cfg, f_e, p_e)
     C = capacity_for(cfg, B * S)
     y = _dispatch_compute_combine(
         cfg, x.reshape(-1, D), topk_w.reshape(-1, cfg.top_k),
-        topk_i.reshape(-1, cfg.top_k), params["experts"], C)
+        topk_i.reshape(-1, cfg.top_k), params["experts"], C, ax)
     y = y.reshape(B, S, D)
     if cfg.n_shared_experts:
         sp = params["shared"]

@@ -6,8 +6,11 @@ version of the Hopper kernel and lives beside it in
 ``kernels.mlstm_plain``; it is re-exported here so the module keeps the
 JAX module's names.  The JAX module also shards the sequence over the
 "model" axis under the ``train_sp`` layout (an exclusive prefix across
-shards, a conv halo, a gathered sLSTM); those branches wait for the port's
-``train_sp`` slice (ROADMAP A.15.3), and every function here is the JAX
+shards, a conv halo, a gathered sLSTM); those branches wait for ROADMAP
+A.15.3b (``dist.sharding.WAITS_FOR["train_sp_ssm"]``): under
+``train_sp`` the recurrence, the causal conv and the sLSTM raise
+``NotImplementedError`` naming it rather than run on one rank's columns
+as if they were the whole sequence.  Every function here is the JAX
 local path.
 
 The xLSTM and Hymba prefills on the card go through the kernel
@@ -23,6 +26,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import sharding as shd
 from repro_torch.kernels.mlstm_plain import (  # noqa: F401  (re-exports)
     NEG, ScanState, combine, linear_recurrence, state_identity)
 
@@ -56,6 +60,7 @@ def recurrence_step(state: ScanState, q, k, v, g, i, *,
 def causal_conv1d(x, w, b=None, *, init_state=None):
     """x: (B, S, C); w: (cw, C) depthwise; left-pads with zeros (or
     ``init_state`` (B, cw-1, C) during decode/chunked prefill)."""
+    shd.require_no_ssm("causal_conv1d")
     cw = w.shape[0]
     S = x.shape[1]
     left = (init_state if init_state is not None
@@ -76,6 +81,7 @@ def slstm_apply(params, x, n_heads: int, *, init_state=None):
     The state is (c, n, h, m), each (B, n_heads, hd) f32.  A Python loop
     over S, one step per position, as the JAX ``lax.scan`` runs it.
     """
+    shd.require_no_ssm("slstm_apply")
     B, S, D = x.shape
     hd = D // n_heads
     pre = (x @ params["w"] + params["bias"]).float()   # (B,S,4D)

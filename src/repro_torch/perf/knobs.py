@@ -7,7 +7,11 @@ knobs it reads: ``ce_impl`` and ``ce_chunk`` (``launch.train.make_loss_fn``),
 (``dist.collectives.Zero3``: ``"wsc"`` gathers a block's shards in one
 all-gather of a flat buffer; ``"shardmap"`` gathers each leaf sharded on
 dim 0 by an all-gather of its own, straight into the full weight, and
-the other leaves as ``"wsc"`` does).  Setting one of
+the other leaves as ``"wsc"`` does) and ``attn_halo``
+(``models.attention.attention_sp``: under ``train_sp`` a sliding-window
+layer whose window reaches fewer than T - 1 chunks back fetches only
+those chunks by point-to-point sends instead of gathering the whole
+sequence).  Setting one of
 the reference's other knobs raises ``NotImplementedError`` naming the
 ROADMAP item it waits for (``UNPORTED``); an unknown name raises
 ``TypeError``.
@@ -27,6 +31,7 @@ class Knobs:
     ce_chunk: int = 0           # >0: vocab chunking of the head and CE
     moe_capacity_factor: float = 0.0  # >0 overrides the config value
     fsdp_gather: str = "wsc"    # wsc | shardmap (the ZeRO-3 use-site gather)
+    attn_halo: bool = False     # train_sp: window layers fetch their halo
 
 
 FSDP_GATHERS = ("wsc", "shardmap")
@@ -35,7 +40,6 @@ FSDP_GATHERS = ("wsc", "shardmap")
 #: the reference's knobs the port does not implement yet, by what each
 #: waits for
 UNPORTED = {
-    "attn_halo": WAITS_FOR["train_sp"],
     "q_chunk": WAITS_FOR["aot"],
     "window_slice": WAITS_FOR["aot"],
     "remat": WAITS_FOR["aot"],
@@ -61,6 +65,9 @@ def use_knobs(**kw):
     if kw.get("fsdp_gather", "wsc") not in FSDP_GATHERS:
         raise ValueError(f"fsdp_gather={kw['fsdp_gather']!r}: want one of "
                          f"{FSDP_GATHERS}")
+    if not isinstance(kw.get("attn_halo", False), bool):
+        raise ValueError(f"attn_halo={kw['attn_halo']!r}: want True or "
+                         f"False")
     tok = _current.set(replace(_current.get(), **kw))
     try:
         yield _current.get()

@@ -327,13 +327,14 @@ def test_knobs_are_the_reference_knobs_ported_or_named():
 
 
 @pytest.mark.parametrize("name", sorted(_fields(JKnobs) - _fields(Knobs)
-                                         | {"fsdp_gather"}))
+                                         | {"fsdp_gather", "attn_halo"}))
 def test_unported_knobs_raise_by_name(name):
     """Setting a reference knob the port does not implement raises naming
     the ROADMAP item it waits for (even at the reference's default), and
     leaves the active knobs as they were.  ``fsdp_gather``, ported with
-    ZeRO-3 (A.15.2), takes the reference's default and raises by name for
-    a value neither package knows."""
+    ZeRO-3 (A.15.2), and ``attn_halo``, ported with train_sp (A.15.3),
+    take the reference's default and raise by name for a value neither
+    package knows."""
     if name in _fields(Knobs):
         with use_knobs(**{name: getattr(JKnobs(), name)}):
             assert getattr(knobs(), name) == getattr(JKnobs(), name)
