@@ -296,13 +296,30 @@ Phases, one JSON line each; any failure exits non-zero:
                  broadcast: the C and B rows' head sums too): y and the
                  five gradients; forward and backward device ms beside the
                  backward's bound
+  sp_mlstm       the kernel at a train_sp rank's shapes with the prefix
+                 carried: train_xlstm's (wgmma) and train_hymba's (CUDA
+                 cores, q/k broadcast) per-worker shapes cut into 2 and 4
+                 ranks' columns; each rank's own final state by a
+                 states-only launch, its y and final state from the
+                 combine of the ranks' before it, held against the whole
+                 sequence's plain call (y) and the plain call from the same
+                 state (the state, and the gradients of q, k, v, g, i and
+                 of the entering state for a loss that reads y and the
+                 state); kernel from a state / states-only / plain ms
+                 beside their bounds
   train_xlstm    full-width xlstm-350m (bf16; depth 8: seven mLSTM
-                 blocks and the sLSTM) trained by the
-                 psum step under train_dmm's DMM controller
-                 (CutoffController(rm, 48), ClusterSim(8, 2 nodes, seed
-                 7)): seq 128 x batch 16, W 8, fused AdamW, 3 steps, each
-                 asserting 21 x 8 mlstm_chunk, 1 masked_grad_agg and 1
-                 fused_adam launches and a finite loss
+                 blocks and the sLSTM) trained under train_dmm's DMM
+                 controller (CutoffController(rm, 48), ClusterSim(8, 2
+                 nodes, seed 7)): seq 128 x batch 16, W 8, fused AdamW, 2
+                 psum steps, each asserting 7 x 8 mlstm_chunk, 1
+                 masked_grad_agg and 1 fused_adam launches and a finite
+                 loss, then a weights step (7 mlstm_chunk, 1 fused_adam)
+  train_sp_xlstm train_xlstm's setup and steps under train_sp at NCCL world
+                 size 1 on a (1, 1) mesh (every gather of the sLSTM's input
+                 and reduce-scatter still runs): launches asserted each
+                 step (each block's forward runs again in its backward's
+                 recompute), the parameters bit-equal to train_xlstm's
+                 after its psum steps and after its weights step
   train_xlstm_parity
                  xlstm-350m at full width, depth 2 (one mLSTM, one sLSTM
                  block), f32, W 4: train_parity's comparisons, CPU against
@@ -349,14 +366,20 @@ Phases, one JSON line each; any failure exits non-zero:
                  card
   train_hymba    hymba-1.5b at depth 4 (294,917,100 parameters, bf16)
                  under train_dmm's DMM controller: seq 128 x batch 16, W
-                 8, psum, fused AdamW; 2 steps, then a replay from the
-                 same state that must match them bit for bit (losses,
+                 8, psum, fused AdamW; 2 steps and a weights step (the
+                 references of train_sp_hymba), then a replay of the 2
+                 from the same state that must match them bit for bit
+                 (losses,
                  cutoffs, parameters) and goes on to 3 steps, each
                  asserting its launches (flash and mlstm_chunk 4 x 8,
                  masked_grad_agg 1, fused_adam 1) and a finite loss; wall
                  ms, peak memory; the device's busy share of one more
                  step; both kernels timed on the trainer's own buffer
                  and state (kernel, plain, library)
+  train_sp_hymba train_hymba's setup, its 2 psum steps and the weights step
+                 under train_sp at world size 1, as train_sp_xlstm:
+                 launches asserted, the parameters bit-equal to
+                 train_hymba's
   train_hymba_parity
                  the depth-2 model in f32, W 2, seq 32 x batch 4, 2 steps:
                  train_parity's comparisons at MoE's bars (the second
@@ -2701,6 +2724,263 @@ def _train_sp(torch, cfg, params_f32, ref, t_setup):
            "max_memory_allocated": peak, "collectives_per_step": step_calls,
            "gathers_per_forward": gathers, "ring": ring_rec,
            "seconds": seconds}
+    return totals, rec
+
+
+# mlstm_chunk at a T-card train_sp mesh's per-rank shapes: (name, B, S, H,
+# dq, dv, normalize).  xLSTM's train shape takes the wgmma path, Hymba's
+# (q/k rows broadcast over the 25 heads, unnormalized) the CUDA-core path.
+SP_MLSTM_CASES = (("xlstm_train", 2, 128, 4, 512, 512, True),
+                  ("hymba_train", 2, 128, 25, 16, 128, False))
+SP_MLSTM_T = (2, 4)
+SP_SSM_PSUM_STEPS = 2   # then one weights step, as train_xlstm runs them
+
+
+def _sp_mlstm(torch):
+    """Each SP_MLSTM_CASES shape cut into T = 2 and 4 ranks' columns, the
+    prefix carried rank to rank as ``ops.mlstm`` carries it: a rank's own
+    final state by a states-only launch, the combine of the ranks' before
+    it as the entering state of a launch through MLSTMChunk.  Each rank's
+    y is held against the whole sequence's plain call at MLSTM_TOL and its
+    final state against the plain call from the same entering state; the
+    gradients of q, k, v, g, i and of the entering state, for a loss that
+    reads y and the final state, against autograd of the plain path on the
+    card at MLSTM_GRAD_TOL of their scale.  At rank 1 (every later rank
+    has its shapes) the launch from the entering state, the states-only
+    launch and the plain call are timed (graph replay) beside their
+    bounds, with the CUDA kernels a call makes."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import aligned16
+    from repro_torch.kernels.mlstm_chunk import (PATH_KERNELS, MLSTMChunk,
+                                                 choose_path, mlstm_chunk)
+    from repro_torch.kernels.mlstm_plain import (ScanState, combine,
+                                                 local_recurrence)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 32)
+    side = torch.cuda.Stream()
+    out = {}
+    for name, B, S, H, dq, dv, norm in SP_MLSTM_CASES:
+        form = {} if norm else HYMBA_FORM
+        opts = (True, None) if norm else (False, 1.0)
+        if norm:
+            xs = _mlstm_inputs(torch, B, S, H, dq, "bfloat16", "normal", gen)
+        else:
+            c_, b_, *rest = _mamba_inputs(torch, B, S, H, dq, dv, "bfloat16",
+                                          gen)
+            xs = (_heads(c_, H), _heads(b_, H), *rest)
+        y_full, _ = local_recurrence(*(t.float() for t in xs), **form)
+        for T in SP_MLSTM_T:
+            n = S // T
+            prefix, worst = None, {"y": 0.0, "final": 0.0, "grad": 0.0}
+            for s in range(T):
+                cols = [t[:, s * n:(s + 1) * n] for t in xs]
+                path = choose_path(cols[0].dtype, dq, aligned16(*cols[:3]),
+                                   dv=dv, normalize=norm)
+                check(path == ("wgmma" if norm else "simt"),
+                      f"sp_mlstm {name} T{T} rank {s}: takes {path}")
+                build.LAUNCHES.clear()
+                with torch.no_grad():
+                    _, own = mlstm_chunk(*cols, outputs=False, **form)
+                leaves = [t.detach().requires_grad_(True) for t in cols]
+                init = [t.detach().clone().requires_grad_(True)
+                        for t in (prefix or ())]
+                y, *final = MLSTMChunk.apply(*leaves, *opts, True, *init)
+                check(build.LAUNCHES["mlstm_chunk"] == 2, f"sp_mlstm {name} "
+                      f"T{T} rank {s}: {dict(build.LAUNCHES)} launches")
+                want_y = y_full[:, s * n:(s + 1) * n]
+                y_ex = _allclose_excess(torch, y, want_y, MLSTM_TOL,
+                                        MLSTM_TOL).item()
+                check(y_ex <= MLSTM_TOL, f"sp_mlstm {name} T{T} rank {s}: y "
+                      f"off the whole sequence's by {y_ex}")
+                r = torch.randn(y.shape, generator=gen, device="cuda")
+                rs = [torch.randn(t.shape, generator=gen, device="cuda")
+                      for t in final]
+
+                def loss(y_, fin):
+                    return (y_ * r).sum() + sum((a * b).sum()
+                                                for a, b in zip(fin, rs))
+
+                got = torch.autograd.grad(loss(y, final), leaves + init)
+                plain = [t.detach().float().contiguous().requires_grad_(True)
+                         for t in leaves]
+                pinit = [t.detach().clone().requires_grad_(True)
+                         for t in init]
+                yp, fp = local_recurrence(
+                    *plain, init_state=ScanState(*pinit) if pinit else None,
+                    **form)
+                want = torch.autograd.grad(loss(yp, fp), plain + pinit)
+                fin_err = _scaled_err(torch, [a.detach() for a in final],
+                                      [b.detach() for b in fp])
+                check(fin_err <= MLSTM_TOL, f"sp_mlstm {name} T{T} rank {s}: "
+                      f"final state off by {fin_err} of its scale")
+                for key, a, b, x in zip(
+                        ["q", "k", "v", "g", "i", "loga0", "m0", "C0", "n0"],
+                        got, want, leaves + init):
+                    check(a.dtype == x.dtype and bool(torch.isfinite(a).all()),
+                          f"sp_mlstm {name} T{T} rank {s}: d{key} {a.dtype}")
+                    err = _scaled_err(torch, [a.float()],
+                                      [b.to(a.dtype).float()])
+                    check(err <= MLSTM_GRAD_TOL, f"sp_mlstm {name} T{T} rank "
+                          f"{s}: d{key} off by {err} of its scale")
+                    worst["grad"] = max(worst["grad"], err)
+                worst["y"] = max(worst["y"], (y - want_y).abs().max().item())
+                worst["final"] = max(worst["final"], fin_err)
+                if s == 1:
+                    ent = ScanState(*(t.detach() for t in init))
+                    args = [t.detach() for t in cols]
+                    with torch.no_grad():
+                        per_call = graph_kernels(torch, lambda: mlstm_chunk(
+                            *args, init_state=ent, **form), side)
+                        per_state = graph_kernels(torch, lambda: mlstm_chunk(
+                            *args, outputs=False, **form), side)
+                        times = {label: device_ms(torch, fn, side) for
+                                 label, fn in (
+                            ("ms", lambda: mlstm_chunk(
+                                *args, init_state=ent, **form)),
+                            ("state_ms", lambda: mlstm_chunk(
+                                *args, outputs=False, **form)),
+                            ("plain_ms", lambda: local_recurrence(
+                                *args, init_state=ent, **form)))}
+                    kernels = dict.fromkeys(PATH_KERNELS[path], 1)
+                    check(per_call == kernels, f"sp_mlstm {name} T{T}: a "
+                          f"call from a state launched {per_call}")
+                    check(per_state == {PATH_KERNELS[path][0]: 1},
+                          f"sp_mlstm {name} T{T}: a states-only call "
+                          f"launched {per_state}")
+                    qk_heads = None if norm else 1
+                    bound = mlstm_bound(B, n, H, dq, "bfloat16", dv, qk_heads,
+                                        init=True)
+                    sbound = mlstm_bound(B, n, H, dq, "bfloat16", dv,
+                                         qk_heads, outputs=False)
+                prefix = own if prefix is None else combine(prefix, own)
+                del leaves, init, y, final, got, plain, pinit, yp, fp, want
+            rec = {"case": f"{name}_t{T}", "shape": [B, n, H, dq], "dv": dv,
+                   "normalize": norm, "path": path, "ranks": T,
+                   "max_abs_err": worst["y"], "final_scaled_err":
+                   worst["final"], "grad_scaled_err": worst["grad"],
+                   "tol": {"y": MLSTM_TOL, "grad": MLSTM_GRAD_TOL},
+                   "cuda_kernels_per_call": per_call,
+                   "cuda_kernels_states_only": per_state, **times,
+                   "library_ms": None, "bound_ms": bound["bound_ms"],
+                   "bound_by": bound["bound_by"],
+                   "state_bound_ms": sbound["bound_ms"],
+                   "state_bound_by": sbound["bound_by"]}
+            emit("sp_mlstm", **rec)
+            out[rec["case"]] = rec
+        del xs, y_full
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_sp_ssm(torch, label, cfg, params, ref, controller_fn):
+    """An SSM arch's train_sp at NCCL world size 1: the setup, seeds and
+    schedule of its train phase (``params`` a function of fresh card
+    weights, ``controller_fn`` of a fresh controller; W 8, seq 128 x batch
+    16, fused AdamW, ClusterSim(8, 2 nodes, seed 7)) under a (1, 1)
+    ("data", "model") train_sp layout: SP_SSM_PSUM_STEPS psum steps and
+    one weights step, each asserting its launches (every mlstm_chunk and
+    flash call twice a forward: the block's recompute runs it again), the
+    gathered parameters bit-equal to ``ref``'s after the psum steps and
+    after the weights step."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.dist import collectives
+    from repro_torch.launch.mesh import init_distributed
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        init_distributed("cuda", init_method=f"file://{d}/pg", rank=0,
+                         world_size=1)
+        try:
+            totals, rec = _train_sp_ssm(torch, label, cfg, params, ref,
+                                        controller_fn)
+        finally:
+            collectives.Zero3._cache.clear()
+            dist.destroy_process_group()
+    rec["seconds"] = time.perf_counter() - t0
+    emit(label, **rec)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
+def _train_sp_ssm(torch, label, cfg, params, ref, controller_fn):
+    import torch.distributed as dist
+
+    from repro_torch import optim, tree
+    from repro_torch.cluster.simulator import ClusterSim
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import gather_state, make_train_step
+    from repro_torch.models import model as M
+
+    W, S, B = 8, 128, 16
+    lay = shd.make_layout(make_mesh((1, 1), ("data", "model")), "train_sp")
+    kinds = [sp.kind for sp in M.layer_specs(cfg)]
+    n_rec = kinds.count("mlstm") + kinds.count("hybrid")
+    n_attn = kinds.count("hybrid")
+    opt = optim.adamw(optim.cosine_schedule(3e-4, 2, 20), fused=True)
+    step_fn = make_train_step(cfg, opt, mask_agg="psum")
+    with shd.use_layout(lay):
+        tr, _ = _train_setup(
+            torch, cfg, params(), n_workers=W, seq=S, batch=B,
+            controller=controller_fn(),
+            timer=ClusterSim(n_workers=W, n_nodes=2, seed=7), opt=opt,
+            step_fn=step_fn)
+    plan = step_fn.plan_for(lay)
+
+    def want(workers, agg):
+        w = {"mlstm_chunk": 2 * n_rec * workers, "fused_adam": 1, **agg}
+        if n_attn:
+            w["flash_attention"] = 2 * n_attn * workers
+        return w
+
+    totals, steps, equal, gap = {}, [], {}, {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(SP_SSM_PSUM_STEPS + 1):
+        agg = "psum" if i < SP_SSM_PSUM_STEPS else "weights"
+        if i == SP_SSM_PSUM_STEPS:
+            tr.step_fn = make_train_step(cfg, opt, mask_agg="weights")
+            tr.mask_agg = "weights"
+        build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        with shd.use_layout(lay):
+            rec = tr.run(1)[-1]    # drains the loss: ends in a device sync
+        wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        w = (want(W, {"masked_grad_agg_sum": 1}) if agg == "psum"
+             else want(1, {}))
+        check(launches == w, f"{label} {agg} step {rec['step']}: launches "
+              f"{launches}, want {w}")
+        check(bool(np.isfinite(rec["loss"])),
+              f"{label} step {rec['step']}: loss {rec['loss']}")
+        steps.append({"mask_agg": agg, "step": rec["step"], "c": rec["c"],
+                      "loss": rec["loss"], "wall_ms": wall * 1e3,
+                      "launches": launches})
+        if i + 1 >= SP_SSM_PSUM_STEPS:
+            key = agg
+            with shd.use_layout(lay):
+                got = _cpu_copy(torch, gather_state(tr.state, plan, lay)
+                                ["params"])
+            equal[key] = _bit_equal(torch, got, ref[key])
+            gap[key] = max((a.float() - b.float()).abs().max().item()
+                           for a, b in zip(got, ref[key]))
+            del got
+    check(all(equal.values()), f"{label}: the parameters differ from the "
+          f"train phase's ({gap})")
+    rec = {"arch": cfg.name, "layers": cfg.n_layers,
+           "world_size": dist.get_world_size(),
+           "backend": dist.get_backend(), "W": W, "mesh": dict(lay.mesh.shape),
+           "steps": steps, "bit_equal": equal, "max_abs_diff": gap,
+           "n_params": sum(x.numel() for x in tree.leaves(tr.state["params"])),
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    del tr, opt, step_fn
     return totals, rec
 
 
@@ -5118,18 +5398,23 @@ def _mlstm_inputs(torch, B, S, H, hd, dtname, gates, gen):
     return q, k, v, F.logsigmoid(f), i
 
 
-def mlstm_ops(B, S, H, hd, chunk, dv=None):
+def mlstm_ops(B, S, H, hd, chunk, dv=None, init=False, outputs=True):
     """Operations of the chunkwise algorithm at ``chunk``, as (q k^T, the
     rest): per (b, h) and chunk of L positions, q k^T and (W q k^T) v over
     the L(L+1)/2 causal pairs, and the two (L, hd) x (hd, dv) products (q C
-    with the entering state, which is zero for the first chunk, and the
-    state update).  ``dv`` (None: hd) is v's width."""
+    with the entering state, which is zero for the first chunk unless the
+    call has an ``init`` state, and the state update).  ``dv`` (None: hd)
+    is v's width; ``outputs`` False counts the state update alone."""
     dv = hd if dv is None else dv
     qk = rest = 0
     for c0 in range(0, S, chunk):
         L = min(chunk, S - c0)
-        qk += L * (L + 1) * hd
-        rest += L * (L + 1) * dv + 2 * L * hd * dv * (2 if c0 else 1)
+        if outputs:
+            qk += L * (L + 1) * hd
+            rest += (L * (L + 1) * dv
+                     + 2 * L * hd * dv * (2 if c0 or init else 1))
+        else:
+            rest += 2 * L * hd * dv
     return B * H * qk, B * H * rest
 
 
@@ -5144,19 +5429,26 @@ def mlstm_in_bytes(B, S, H, hd, dtname, dv=None, qk_heads=None):
             + 2 * B * S * H * 4)
 
 
-def mlstm_bound(B, S, H, hd, dtname, dv=None, qk_heads=None):
+def mlstm_bound(B, S, H, hd, dtname, dv=None, qk_heads=None, init=False,
+                outputs=True):
     """The least time the card could take for one call, in ms, with its
-    basis: the bytes (q/k/v and the gates read once, y and the final state
-    written once) over 3.35 TB/s, against the operations (counted in the
-    Pallas kernel's chunks) over the tensor cores' rates, 989 TFLOP/s for
-    q k^T with bf16 operands and 495 (TF32) for the products with an f32
-    operand; the same count over 67 TFLOP/s of f32 FMAs beside it.  ``dv``
-    and ``qk_heads`` as ``mlstm_in_bytes`` takes them."""
+    basis: the bytes (q/k/v, the gates and an ``init`` state read once, y
+    unless ``outputs`` is False and the final state written once) over
+    3.35 TB/s, against the operations (counted in the Pallas kernel's
+    chunks) over the tensor cores' rates, 989 TFLOP/s for q k^T with bf16
+    operands and 495 (TF32) for the products with an f32 operand; the same
+    count over 67 TFLOP/s of f32 FMAs beside it.  ``dv`` and ``qk_heads``
+    as ``mlstm_in_bytes`` takes them."""
     dv = hd if dv is None else dv
-    nbytes = (mlstm_in_bytes(B, S, H, hd, dtname, dv, qk_heads)   # in
-              + B * S * H * dv * 4                                # y
-              + 4 * B * H * (hd * dv + hd + 2))                   # state
-    qk, rest = mlstm_ops(B, S, H, hd, PALLAS_MLSTM_CHUNK, dv)
+    state = 4 * B * H * (hd * dv + hd + 2)
+    in_bytes = mlstm_in_bytes(B, S, H, hd, dtname, dv, qk_heads)
+    if not outputs:   # the state update reads no q
+        in_bytes -= (B * S * (H if qk_heads is None else qk_heads) * hd
+                     * (2 if dtname == "bfloat16" else 4))
+    nbytes = (in_bytes                                            # in
+              + (B * S * H * dv * 4 if outputs else 0)            # y
+              + state * (2 if init else 1))                       # state
+    qk, rest = mlstm_ops(B, S, H, hd, PALLAS_MLSTM_CHUNK, dv, init, outputs)
     qk_rate = PEAK_OPS["bfloat16"] if dtname == "bfloat16" else TF32_OPS
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = (qk / qk_rate + rest / TF32_OPS) * 1e3
@@ -5554,15 +5846,19 @@ def phase_mlstm_grad(torch):
 
 def phase_train_xlstm(torch, cfg, params_f32, rm):
     """Full-width xlstm-350m (bf16; the script cuts its depth to
-    CUT_DEPTH["train_xlstm"]) trained by the psum step
-    under train_dmm's DMM controller over ClusterSim(8, 2 nodes, seed 7):
-    seq 128 x batch 16, W 8, fused AdamW.  Each step asserts n_mlstm x 8
+    CUT_DEPTH["train_xlstm"]) trained under train_dmm's DMM controller over
+    ClusterSim(8, 2 nodes, seed 7): seq 128 x batch 16, W 8, fused AdamW,
+    SP_SSM_PSUM_STEPS psum steps, then one step of the weights path from
+    the same state (XLSTM_STEPS in all).  A psum step asserts n_mlstm x 8
     mlstm_chunk launches (every mLSTM block of every worker, forward
     through MLSTMChunk), one masked_grad_agg, one fused_adam, no flash
-    launch, a finite loss."""
+    launch, a finite loss; the weights step n_mlstm and one fused_adam.
+    Returns the launches and the parameters (CPU copies) after the psum
+    steps and after the weights step, which train_sp_xlstm must give."""
     from repro_torch import tree
     from repro_torch.cluster.simulator import ClusterSim
     from repro_torch.kernels import build
+    from repro_torch.launch.train import make_train_step
     from repro_torch.models import model as M
 
     W, S, B = 8, 128, 16
@@ -5573,10 +5869,15 @@ def phase_train_xlstm(torch, cfg, params_f32, rm):
                            timer=ClusterSim(n_workers=W, n_nodes=2, seed=7))
     want = {"mlstm_chunk": n_mlstm * W, "masked_grad_agg": 1,
             "fused_adam": 1}
-    totals, walls = {}, []
+    totals, walls, ref = {}, [], {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for _ in range(XLSTM_STEPS):
+    for i in range(XLSTM_STEPS):
+        agg = "psum" if i < SP_SSM_PSUM_STEPS else "weights"
+        if i == SP_SSM_PSUM_STEPS:
+            tr.step_fn = make_train_step(cfg, opt, mask_agg="weights")
+            tr.mask_agg = "weights"
+            want = {"mlstm_chunk": n_mlstm, "fused_adam": 1}
         build.LAUNCHES.clear()
         t0 = time.perf_counter()
         rec = tr.run(1)[-1]        # drains the loss: ends in a device sync
@@ -5588,10 +5889,13 @@ def phase_train_xlstm(torch, cfg, params_f32, rm):
               f"{launches}, want {want}")
         check(bool(np.isfinite(rec["loss"])),
               f"train_xlstm step {rec['step']}: loss {rec['loss']}")
-        walls.append(wall * 1e3)
+        if agg == "psum":
+            walls.append(wall * 1e3)
+        if i + 1 >= SP_SSM_PSUM_STEPS:
+            ref[agg] = _cpu_copy(torch, tr.state["params"])
         emit("train_xlstm", arch=cfg.name, dtype="bfloat16", step=rec["step"],
-             wall_ms=wall * 1e3, tokens_per_s=B * S / wall, c=rec["c"],
-             n=rec["n"], loss=rec["loss"], clock=rec["clock"],
+             mask_agg=agg, wall_ms=wall * 1e3, tokens_per_s=B * S / wall,
+             c=rec["c"], n=rec["n"], loss=rec["loss"], clock=rec["clock"],
              launches=launches,
              max_memory_allocated=torch.cuda.max_memory_allocated())
     n_params = sum(x.numel() for x in tree.leaves(params))
@@ -5602,7 +5906,7 @@ def phase_train_xlstm(torch, cfg, params_f32, rm):
     del tr, opt, params
     gc.collect()
     torch.cuda.empty_cache()
-    return totals
+    return totals, ref
 
 
 def phase_train_xlstm_parity(torch, cfg_full):
@@ -5997,7 +6301,8 @@ HYMBA_PARAMS = 1_642_503_200
 HYMBA_TRAIN_DEPTH = 4
 HYMBA_TRAIN_PARAMS = 294_917_100
 HYMBA_STEPS = 3
-HYMBA_REPLAY = 2
+# the first run's steps, also train_sp_hymba's psum steps
+HYMBA_REPLAY = SP_SSM_PSUM_STEPS
 # depth 2 in f32: the CPU and the card sum in other orders; the xLSTM's
 # and MoE's parity runs (24 and 8 layers) hold 1e-3
 HYMBA_PARITY_LOGIT_ATOL = 1e-4
@@ -6115,12 +6420,15 @@ def phase_train_hymba(torch, cfg_full, rm):
     windowed; bf16, weights drawn on the card) trained by the psum
     step under train_dmm's DMM controller over ClusterSim(8, 2 nodes, seed
     7): seq 128 x batch 16, W 8, fused AdamW.  A first run of HYMBA_REPLAY
-    steps, then a second from the same state, controller, timer and data
-    that must give the same losses, cutoffs and parameters bit for bit
-    over those steps and goes on to HYMBA_STEPS, each asserting its
-    launches (flash and mlstm_chunk 4 x 8, masked_grad_agg 1, fused_adam
-    1) and a finite loss.  The two runs share one step function: one
-    (8, N) buffer.  Then the device's busy share of one more step."""
+    steps and then a weights step (the parameters after each are
+    train_sp_hymba's references), then a second run from the same state,
+    controller, timer and data that must give the first run's losses,
+    cutoffs and parameters bit for bit over its HYMBA_REPLAY steps and
+    goes on to HYMBA_STEPS, each asserting its launches (flash and
+    mlstm_chunk 4 x 8, masked_grad_agg 1, fused_adam 1) and a finite loss.
+    The two runs share one step function: one (8, N) buffer.  Then the
+    device's busy share of one more step.  Returns the launches, the
+    kernels' times, the weights (a CPU copy) and the references."""
     from repro_torch import tree
     from repro_torch.cluster.simulator import ClusterSim
     from repro_torch.kernels import build
@@ -6151,6 +6459,17 @@ def phase_train_hymba(torch, cfg_full, rm):
     tr = trainer()
     hist1 = [dict(h) for h in tr.run(HYMBA_REPLAY)]
     after1 = _cpu_copy(torch, tr.state["params"])
+    # one weights step from there: what train_sp_hymba's must give
+    tr.step_fn = make_train_step(cfg, opt, mask_agg="weights")
+    tr.mask_agg = "weights"
+    build.LAUNCHES.clear()
+    check(bool(np.isfinite(tr.run(1)[-1]["loss"])), "train_hymba: the "
+          "weights step's loss")
+    want_w = {"flash_attention": cfg.n_layers, "mlstm_chunk": cfg.n_layers,
+              "fused_adam": 1}
+    check(dict(build.LAUNCHES) == want_w, f"train_hymba weights step: "
+          f"launches {dict(build.LAUNCHES)}, want {want_w}")
+    sp_ref = {"psum": after1, "weights": _cpu_copy(torch, tr.state["params"])}
     del tr
     gc.collect()
 
@@ -6213,10 +6532,10 @@ def phase_train_hymba(torch, cfg_full, rm):
          median_wall_ms=float(np.median(walls[1:])), launches=totals,
          max_memory_allocated=peak, replay=replay,
          replay_losses=[h["loss"] for h in hist1])
-    del tr, step_fn, opt, p0
+    del tr, step_fn, opt
     gc.collect()
     torch.cuda.empty_cache()
-    return totals, agg, adam
+    return totals, agg, adam, p0, sp_ref
 
 
 def phase_train_hymba_parity(torch, cfg_full):
@@ -6837,12 +7156,17 @@ def main() -> int:
     timed(sec, "serve_xlstm_parity", phase_xlstm_parity, torch, xcfg,
           xparams)
     mlstm_grad = timed(sec, "mlstm_grad", phase_mlstm_grad, torch)
+    sp_mlstm = timed(sec, "sp_mlstm", _sp_mlstm, torch)
     n_x = CUT_DEPTH["train_xlstm"]
-    xtrain_launches = timed(sec, "train_xlstm", phase_train_xlstm, torch,
-                            dataclasses.replace(xcfg, n_layers=n_x),
-                            dict(xparams, layers=xparams["layers"][:n_x]),
-                            rm)
-    del xparams
+    xcut = dataclasses.replace(xcfg, n_layers=n_x)
+    xparams = dict(xparams, layers=xparams["layers"][:n_x])
+    xtrain_launches, xref = timed(sec, "train_xlstm", phase_train_xlstm,
+                                  torch, xcut, xparams, rm)
+    xsp_launches = timed(
+        sec, "train_sp_xlstm", phase_train_sp_ssm, torch, "train_sp_xlstm",
+        xcut, lambda: cast(xparams, "cuda", torch.bfloat16), xref,
+        lambda: _dmm_controller(rm))
+    del xparams, xref
     timed(sec, "train_xlstm_parity", phase_train_xlstm_parity, torch, xcfg)
     mcfg = get_config("deepseek-moe-16b")
     moe_serve_launches = timed(sec, "serve_moe", phase_serve_moe, torch, mcfg)
@@ -6854,8 +7178,14 @@ def main() -> int:
     hymba_serve_launches = timed(sec, "serve_hymba", phase_serve_hymba,
                                  torch, hcfg)
     timed(sec, "serve_hymba_parity", phase_serve_hymba_parity, torch, hcfg)
-    hymba_train_launches, agg_hymba, adam_hymba = timed(
+    hymba_train_launches, agg_hymba, adam_hymba, hp0, href = timed(
         sec, "train_hymba", phase_train_hymba, torch, hcfg, rm)
+    hsp_launches = timed(
+        sec, "train_sp_hymba", phase_train_sp_ssm, torch, "train_sp_hymba",
+        dataclasses.replace(hcfg, n_layers=HYMBA_TRAIN_DEPTH),
+        lambda: cast(hp0, "cuda", torch.bfloat16), href,
+        lambda: _dmm_controller(rm))
+    del hp0, href
     timed(sec, "train_hymba_parity", phase_train_hymba_parity, torch, hcfg)
     wcfg = get_config("whisper-base")
     whisper_serve_launches = timed(sec, "serve_whisper", phase_serve_whisper,
@@ -6892,10 +7222,12 @@ def main() -> int:
                    "serve_xlstm": xlstm_launches.get(name, 0),
                    "supervised": supervised_launches.get(name, 0),
                    "train_xlstm": xtrain_launches.get(name, 0),
+                   "train_sp_xlstm": xsp_launches.get(name, 0),
                    "serve_moe": moe_serve_launches.get(name, 0),
                    "train_moe": moe_train_launches.get(name, 0),
                    "serve_hymba": hymba_serve_launches.get(name, 0),
                    "train_hymba": hymba_train_launches.get(name, 0),
+                   "train_sp_hymba": hsp_launches.get(name, 0),
                    "serve_whisper": whisper_serve_launches.get(name, 0),
                    "train_whisper": whisper_train_launches.get(name, 0),
                    "serve_qwen2vl": vl_serve_launches.get(name, 0),
@@ -7015,6 +7347,14 @@ def main() -> int:
             "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
             "max_abs_err", "rel_err", "grad_rel_err")}
         for c in sp_flash}
+    # train_sp's per-rank shapes with the prefix carried (mlstm_chunk)
+    next(r for r in rows if r["name"] == "mlstm_chunk")["sp_cases"] = {
+        c: {k: sp_mlstm[c][k] for k in (
+            "shape", "dv", "path", "ms", "state_ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by", "state_bound_ms",
+            "state_bound_by", "max_abs_err", "final_scaled_err",
+            "grad_scaled_err")}
+        for c in sp_mlstm}
     print(json.dumps({"kernels": rows}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

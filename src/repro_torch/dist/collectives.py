@@ -31,9 +31,12 @@
     ``seq_gather`` (an all-gather of the ranks' columns; backward, a
     reduce-scatter), ``halo`` (the neighbouring chunks a sliding window
     reads, by point-to-point sends; backward, the reverse sends),
-    ``ring_shift`` (a block one step round the model ring), ``all_to_all``
-    (equal blocks of dim 0 to each rank; backward, the same exchange of
-    the gradients), ``vocab_block`` (an untied head's dim-0 shard
+    ``stack_gather`` (each rank's copy of small tensors, stacked: the
+    recurrence's states, whose exclusive prefix each rank combines; with
+    ``depend``, which keeps it in the graph of a rank that reads none of
+    it), ``ring_shift`` (a block one step round the model ring),
+    ``all_to_all`` (equal blocks of dim 0 to each rank; backward, the same
+    exchange of the gradients), ``vocab_block`` (an untied head's dim-0 shard
     re-blocked to its vocab columns) and the sums and means over the
     model axis of values every rank then holds (``model_sum``,
     ``model_mean``; backward, the identity or its 1/T: each rank's loss is
@@ -573,6 +576,80 @@ def seq_gather(x, dim: int = 1, lay=None):
     """The full sequence from every rank's columns of it (dim ``dim``):
     one all-gather over the model axis; its gradient a reduce-scatter."""
     return _SeqGather.apply(x, dim, model_axis(lay))
+
+
+class _StackGather(torch.autograd.Function):
+    """Tensors of one dtype -> each rank's copies of each, stacked on a new
+    dim 0 in the model axis's order: one all-gather of their flat
+    concatenation; backward, a reduce-scatter of the stacked gradients
+    (zeros where none reached a copy), each rank the sum over the ranks of
+    its own copies' gradients."""
+
+    @staticmethod
+    def forward(ctx, ax, *xs):
+        ctx.ax = ax
+        ctx.shapes = [x.shape for x in xs]
+        ctx.set_materialize_grads(False)
+        flat = torch.cat([x.reshape(-1) for x in xs])
+        ctx.like = (flat.dtype, flat.device)
+        parts = list(torch.empty((ax.size, flat.numel()), dtype=flat.dtype,
+                                 device=flat.device))
+        dist.all_gather(parts, flat, group=ax.group)
+        full = torch.stack(parts)
+        out, off = [], 0
+        for shape in ctx.shapes:
+            n = math.prod(shape)
+            out.append(full[:, off:off + n].reshape((ax.size, *shape)))
+            off += n
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        ax = ctx.ax
+        dtype, device = ctx.like
+        full = torch.cat([
+            (g if g is not None else torch.zeros(
+                (ax.size, *shape), dtype=dtype, device=device)
+             ).reshape(ax.size, -1) for g, shape in zip(gs, ctx.shapes)],
+            dim=1)
+        mine = torch.empty_like(full[0])
+        dist.reduce_scatter(mine, [r.contiguous() for r in full],
+                            group=ax.group)
+        out, off = [], 0
+        for shape in ctx.shapes:
+            n = math.prod(shape)
+            out.append(mine[off:off + n].view(shape))
+            off += n
+        return (None, *out)
+
+
+def stack_gather(xs, lay=None):
+    """Each of the tensors ``xs`` (one dtype) from every rank of the model
+    axis, stacked on a new dim 0 (T, ...): one all-gather; the gradient a
+    reduce-scatter (the recurrence's exclusive prefix across ranks)."""
+    return _StackGather.apply(model_axis(lay), *xs)
+
+
+class _Depend(torch.autograd.Function):
+    """``y`` as it is, with other tensors in its graph: their gradient is
+    none, but the backward of what made them runs once y's has."""
+
+    @staticmethod
+    def forward(ctx, y, *deps):
+        ctx.n = len(deps)
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g,) + (None,) * ctx.n
+
+
+def depend(y, *deps):
+    """``y``, its backward also running the backward of the collective that
+    made ``deps``: a rank whose y reads none of a gather's output still
+    joins the gather's reduce-scatter, which every rank of the group must
+    call."""
+    return _Depend.apply(y, *deps)
 
 
 class _Halo(torch.autograd.Function):

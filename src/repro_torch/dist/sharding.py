@@ -28,9 +28,9 @@
     instead of kept, and ``act(x, dp, sp, tp, seq=...)`` — the
     activation constraint: the identity, except that under ``train_sp``
     it gathers or slices the sequence as asked.
-  * ``seq_parallel`` / ``seq_span`` / ``seq_shard`` — whether the active
-    layout splits the sequence over the model axis, and this rank's
-    columns of a full sequence.
+  * ``seq_parallel`` / ``seq_span`` / ``seq_shard`` / ``seq_last`` —
+    whether the active layout splits the sequence over the model axis,
+    this rank's columns of a full sequence, and whether they are its last.
 
 A mesh is anything with ``axis_names`` and ``shape`` by axis name: the
 port's ``launch.mesh.Mesh`` over a process group (what the train step
@@ -46,10 +46,10 @@ the model axis and the parameters ZeRO-3 over it.  Under ``train_sp``
 every activation a rank holds is its own columns of the sequence (the
 model's forward takes them from the full batch it is given): ``act``
 says by its ``seq`` argument whether a tensor is that slice or the full
-sequence, and never guesses it from a shape.  The archs with SSM blocks
-raise there by name (``WAITS_FOR["train_sp_ssm"]``), and ``decode_tp``
-raises by name (:func:`require_data_parallel`); nothing falls back to
-one process.
+sequence, and never guesses it from a shape; every arch runs there, the
+SSM blocks through the reference's prefix, halo and gathered scan
+(``models.ssm``).  ``decode_tp`` raises by name
+(:func:`require_data_parallel`); nothing falls back to one process.
 """
 from __future__ import annotations
 
@@ -70,14 +70,11 @@ WAITS_FOR = {
     # ported: ZeRO-3 over the model axis under train_fsdp, with zero1
     "model": "ROADMAP A.15.2 (ZeRO-3 over the model axis, state_shardings "
              "and zero1; ported for train_fsdp)",
-    # ported for the attention archs: the sequence over the model axis,
-    # K/V gathered, the vocab ring, the MoE all-to-all, the halo
+    # ported: the sequence over the model axis, K/V gathered, the vocab
+    # ring, the MoE all-to-all, the halo, and (A.15.3b) the SSM branches
     "train_sp": "ROADMAP A.15.3 (train_sp: sequence parallelism, the ring "
-                "CE and the MoE all-to-all; ported for the attention archs)",
-    "train_sp_ssm": "ROADMAP A.15.3b (train_sp's ssm.py branches: the "
-                    "exclusive prefix across shards, the conv halo, the "
-                    "gathered sLSTM, and mlstm_chunk taking an entering "
-                    "state and a gradient on its final state)",
+                "CE and the MoE all-to-all; ported, the SSM archs in "
+                "A.15.3b)",
     "decode_tp": "ROADMAP A.15.4 (decode_tp: tensor-parallel decode with "
                  "cache_pspec)",
     "aot": "ROADMAP A.15.5 (the AOT mesh tooling: make_production_mesh, "
@@ -193,17 +190,6 @@ def require_data_parallel(lay: Layout, what: str) -> None:
         raise NotImplementedError(
             f"{what} under a {lay.mode} layout is not ported yet: it waits "
             f"for {WAITS_FOR[lay.mode]}")
-
-
-def require_no_ssm(what: str) -> None:
-    """Raise ``NotImplementedError`` naming ``WAITS_FOR["train_sp_ssm"]``
-    when the active layout splits the sequence: ``what`` (an SSM
-    recurrence, conv or scan) has no ``train_sp`` branch yet, and it must
-    not run on one rank's columns as if they were the whole sequence."""
-    if seq_parallel():
-        raise NotImplementedError(
-            f"{what} under train_sp is not ported yet: it waits for "
-            f"{WAITS_FOR['train_sp_ssm']}")
 
 
 # ---------------------------------------------------------------------------
@@ -577,6 +563,16 @@ def seq_span(S: int, lay=None) -> Tuple[int, int]:
                          f"{S} does not divide by {T}")
     n = S // T
     return lay.mesh.index((lay.model_axis,)) * n, n
+
+
+def seq_last(lay=None) -> bool:
+    """False on a ``train_sp`` rank whose columns are not the sequence's
+    last, True elsewhere: the rank that carries the gradient of a state
+    every rank holds whole (the reference's ``psum`` of the last shard's)."""
+    lay = layout() if lay is None else lay
+    if not seq_parallel(lay):
+        return True
+    return lay.mesh.index((lay.model_axis,)) == lay.n_shards - 1
 
 
 def seq_shard(x, dim: int = 1):

@@ -13,6 +13,10 @@
 // also returns the final state (loga, m, C, n), which the Pallas kernel
 // drops: prefill hands it to decode as the cache.  Any S (the last chunk
 // may be short) and any B*H; hd 16, 32, or a multiple of 64 up to 512.
+// It may start from a given state instead of the zero one (under sequence
+// parallelism a rank's columns start from the combine of the ranks' before
+// it, src/repro/models/ssm.py:167-181) and may return the final state alone
+// (a rank's own summary, which those prefixes are made of).
 //
 // The CUDA-core path also computes the other form of the JAX package's
 // `ssm.linear_recurrence` (src/repro/models/ssm.py:141), the one Hymba's
@@ -136,6 +140,12 @@ struct Params {
   float* n;
   float* m;
   float* loga;
+  // the state entering the sequence (all four, or none: the zero state),
+  // contiguous f32 (B,H,dq,dv), (B,H,dq), (B,H), (B,H)
+  const float* C0;
+  const float* n0;
+  const float* m0;
+  const float* loga0;
   int B, S, H, dq, dv, dt, vt;   // dt: key tile, vt: value tile
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
@@ -206,11 +216,21 @@ __global__ void __launch_bounds__(NT, 1) mlstm_fwd(Params p) {
   const float* __restrict__ gp = p.g + b * p.g_sb + h * p.g_sh;
   const float* __restrict__ ip = p.i + b * p.i_sb + h * p.i_sh;
 
-  for (int idx = tid; idx < dq * VT; idx += NT) Cs[idx] = 0.f;
-  for (int idx = tid; idx < dq; idx += NT) ns[idx] = 0.f;
+  // y null: the final state alone (no output products)
+  const bool outs = p.y != nullptr;
+  const long long bh = (long long)b * p.H + h;
+  if (p.C0 != nullptr) {   // the caller's entering state: C's tile, n, m, loga
+    const float* C0 = p.C0 + bh * dq * p.dv + v0;
+    for (int idx = tid; idx < dq * VT; idx += NT)
+      Cs[idx] = C0[(long long)(idx / VT) * p.dv + idx % VT];
+    for (int idx = tid; idx < dq; idx += NT) ns[idx] = p.n0[bh * dq + idx];
+  } else {
+    for (int idx = tid; idx < dq * VT; idx += NT) Cs[idx] = 0.f;
+    for (int idx = tid; idx < dq; idx += NT) ns[idx] = 0.f;
+  }
   if (tid == 0) {
-    scal[0] = NEG;
-    scal[1] = 0.f;
+    scal[0] = p.C0 != nullptr ? p.m0[bh] : NEG;
+    scal[1] = p.C0 != nullptr ? p.loga0[bh] : 0.f;
   }
   __syncthreads();
 
@@ -270,7 +290,7 @@ __global__ void __launch_bounds__(NT, 1) mlstm_fwd(Params p) {
       sc[tid] = 0.f;
     }
     __syncthreads();
-    for (int idx = tid; idx < CH * CH; idx += NT) {
+    for (int idx = tid; outs && idx < CH * CH; idx += NT) {
       const int t = idx / CH, s = idx % CH;
       Wm[t * (CH + 4) + s] =
           (t < L && s <= t) ? expf(lg[t] - lg[s] + ig[s] - mo[t]) : 0.f;
@@ -318,7 +338,7 @@ __global__ void __launch_bounds__(NT, 1) mlstm_fwd(Params p) {
       __syncthreads();
       if (d0 + DT < dq) fetch(d0 + DT);   // in flight during the products
       // q k^T
-      for (int d = 0; d < DT; ++d) {
+      for (int d = 0; outs && d < DT; ++d) {
         const float2 a = *reinterpret_cast<const float2*>(&QT[d * QS + kt0]);
         const float2 c = *reinterpret_cast<const float2*>(&KT[d * QS + ks0]);
         aqk[0][0] += a.x * c.x;
@@ -327,7 +347,7 @@ __global__ void __launch_bounds__(NT, 1) mlstm_fwd(Params p) {
         aqk[1][1] += a.y * c.y;
       }
       // q C with the entering C rows of this tile
-      if (c_on) {
+      if (outs && c_on) {
         for (int d = 0; d < DT; ++d) {
           const float4 a = *reinterpret_cast<const float4*>(&QT[d * QS + ct0]);
           const float2 c =
@@ -343,7 +363,7 @@ __global__ void __launch_bounds__(NT, 1) mlstm_fwd(Params p) {
         }
       }
       // q n
-      if (tid < CH)
+      if (outs && tid < CH)
         for (int d = 0; d < DT; ++d) aqn += QT[d * QS + tid] * ns[d0 + d];
       __syncthreads();
       // C and n update of this tile's rows: decay, then the chunk's k v^T
@@ -381,44 +401,46 @@ __global__ void __launch_bounds__(NT, 1) mlstm_fwd(Params p) {
     }
 
     // ---- outputs of the chunk ----
+    if (outs) {
 #pragma unroll
-    for (int a = 0; a < 2; ++a)
+      for (int a = 0; a < 2; ++a)
 #pragma unroll
-      for (int c = 0; c < 2; ++c)   // W * (q k^T), zero where masked
-        Wm[(kt0 + a) * (CH + 4) + ks0 + c] *= aqk[a][c];
-    if (tid < CH) qn[tid] = aqn;
-    __syncthreads();
-    if (tid < L && p.normalize) {
-      const int t = tid;
-      float acc = 0.f;
-      for (int s = 0; s <= t; ++s) acc += Wm[t * (CH + 4) + s];
-      acc += sce[t] * qn[t];
-      den[t] = fmaxf(fabsf(acc), expf(-mo[t]));
-    }
-    __syncthreads();
-    if (c_on) {
+        for (int c = 0; c < 2; ++c)   // W * (q k^T), zero where masked
+          Wm[(kt0 + a) * (CH + 4) + ks0 + c] *= aqk[a][c];
+      if (tid < CH) qn[tid] = aqn;
+      __syncthreads();
+      if (tid < L && p.normalize) {
+        const int t = tid;
+        float acc = 0.f;
+        for (int s = 0; s <= t; ++s) acc += Wm[t * (CH + 4) + s];
+        acc += sce[t] * qn[t];
+        den[t] = fmaxf(fabsf(acc), expf(-mo[t]));
+      }
+      __syncthreads();
+      if (c_on) {
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int t = ct0 + a;
-        if (t < L) {
-          float n0 = 0.f, n1 = 0.f;
-          for (int s = 0; s <= t; ++s) {
-            const float w = Wm[t * (CH + 4) + s];
-            const float2 vv =
-                *reinterpret_cast<const float2*>(&Vs[s * VT + cj0]);
-            n0 += w * vv.x;
-            n1 += w * vv.y;
-          }
-          n0 += sce[t] * aqc[a][0];
-          n1 += sce[t] * aqc[a][1];
-          float* yp = &p.y[(((long long)b * p.S + c0 + t) * p.H + h) * p.dv +
-                           v0 + cj0];
-          if (p.normalize) {
-            yp[0] = n0 / den[t];
-            yp[1] = n1 / den[t];
-          } else {
-            yp[0] = n0;
-            yp[1] = n1;
+        for (int a = 0; a < 4; ++a) {
+          const int t = ct0 + a;
+          if (t < L) {
+            float n0 = 0.f, n1 = 0.f;
+            for (int s = 0; s <= t; ++s) {
+              const float w = Wm[t * (CH + 4) + s];
+              const float2 vv =
+                  *reinterpret_cast<const float2*>(&Vs[s * VT + cj0]);
+              n0 += w * vv.x;
+              n1 += w * vv.y;
+            }
+            n0 += sce[t] * aqc[a][0];
+            n1 += sce[t] * aqc[a][1];
+            float* yp = &p.y[(((long long)b * p.S + c0 + t) * p.H + h) * p.dv +
+                             v0 + cj0];
+            if (p.normalize) {
+              yp[0] = n0 / den[t];
+              yp[1] = n1 / den[t];
+            } else {
+              yp[0] = n0;
+              yp[1] = n1;
+            }
           }
         }
       }
@@ -432,17 +454,17 @@ __global__ void __launch_bounds__(NT, 1) mlstm_fwd(Params p) {
   }
 
   // ---- final state ----
-  float* C = p.C + ((long long)b * p.H + h) * dq * p.dv;
+  float* C = p.C + bh * dq * p.dv;
   for (int idx = tid; idx < dq * VT; idx += NT) {
     const int d = idx / VT, j = idx % VT;
     C[(long long)d * p.dv + v0 + j] = Cs[idx];
   }
   if (vti == 0) {
-    float* n = p.n + ((long long)b * p.H + h) * dq;
+    float* n = p.n + bh * dq;
     for (int d = tid; d < dq; d += NT) n[d] = ns[d];
     if (tid == 0) {
-      p.m[b * p.H + h] = scal[0];
-      p.loga[b * p.H + h] = scal[1];
+      p.m[bh] = scal[0];
+      p.loga[bh] = scal[1];
     }
   }
 }
@@ -495,13 +517,21 @@ struct TcParams {
   float* n;
   float* m;
   float* loga;
-  // the state entering chunks 1..nc-1, [chunk - 1][b*H + h]: C as bf16
-  // hi + lo (hd x hd each), n (hd), m
+  // the caller's state entering chunk 0, or null (the zero state), as in
+  // Params
+  const float* C0;
+  const float* n0;
+  const float* m0;
+  const float* loga0;
+  // the state entering each chunk that has one, [slot][b*H + h]: C as bf16
+  // hi + lo (hd x hd each), n (hd), m; chunk c's slot is c - 1 + inter0
   __nv_bfloat16* e_hi;
   __nv_bfloat16* e_lo;
   float* e_n;
   float* e_m;
   int B, S, H, hd, nc;
+  int inter0;    // 1: a state enters chunk 0 (C0 given)
+  int outputs;   // 0: the final state alone (the outputs kernel not run)
   int jpb;   // value tiles a state block walks
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
@@ -654,6 +684,22 @@ __global__ void __launch_bounds__(TC_THREADS) mlstm_state_tc(TcParams p) {
     float m_prev = NEG;
     double loga = 0.0;
     float n_reg = 0.f;        // n[d0 + tid] for tid < 64, first tile only
+    if (p.inter0) {   // the caller's entering state: this tile of C, n, m
+      const float* cin =
+          p.C0 + (long long)bh * hd * hd + (long long)d0 * hd + jt * VT;
+#pragma unroll
+      for (int jj = 0; jj < VT / 8; ++jj)
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const int row = warp * 16 + (lane >> 2) + 8 * h2;
+          const float* r = cin + (long long)row * hd + 8 * jj + 2 * quad;
+          acc[4 * jj + 2 * h2] = r[0];
+          acc[4 * jj + 2 * h2 + 1] = r[1];
+        }
+      m_prev = p.m0[bh];
+      loga = p.loga0[bh];
+      if (tid < TC_DT) n_reg = p.n0[(long long)bh * hd + d0 + tid];
+    }
     const bool first = jt == jt0;
     for (int c = 0; c < p.nc; ++c, ++step) {
       const int c0 = c * TC_CH;
@@ -738,8 +784,8 @@ __global__ void __launch_bounds__(TC_THREADS) mlstm_state_tc(TcParams p) {
       __syncthreads();
 
       // ---- the state entering this chunk, for its outputs ----
-      if (c > 0) {
-        const long long e = (long long)(c - 1) * BH + bh;
+      if (p.outputs && (c > 0 || p.inter0)) {
+        const long long e = (long long)(c - 1 + p.inter0) * BH + bh;
         __nv_bfloat16* eh =
             p.e_hi + e * hd * hd + (long long)d0 * hd + jt * VT;
         __nv_bfloat16* el =
@@ -834,15 +880,15 @@ struct OutShape {
 
 // The outputs of 64 query rows x VT value columns of one chunk of one
 // (batch, head): rows t0.. of chunk c, value columns j0...  INTER: a state
-// enters the chunk (c > 0), so q C_enter and q n_enter join the sums.  The
-// two forms are compiled apart, so that each runs its wgmmas with no
-// branch between them.
+// enters the chunk (c > 0, or the caller's at chunk 0), so q C_enter and q
+// n_enter join the sums.  The two forms are compiled apart, so that each
+// runs its wgmmas with no branch between them.
 template <int VT, bool INTER>
 __device__ __forceinline__ void out_block(const TcParams& p, uint8_t* sm,
                                           uint32_t base, int bh, int c,
                                           int t0, int j0) {
   using Sh = OutShape<VT>;
-  const bool multi = p.nc > 1;
+  const bool multi = p.nc > 1 || p.inter0;   // some chunk has a state
   const int stage_bytes = Sh::stage(multi);
   // [TC_CH] the cumulative log decay as f32 hi + lo (its f64 value to
   // about 48 bits: lg_t - lg_s = (hi_t - hi_s) + (lo_t - lo_s) in f32 keeps
@@ -859,7 +905,8 @@ __device__ __forceinline__ void out_block(const TcParams& p, uint8_t* sm,
   const int c0 = c * TC_CH;
   const int L = min(TC_CH, p.S - c0);
   const int nk = min(L, t0 + TC_ROWS);   // keys the rows see (causal)
-  const long long e_idx = (long long)(c - 1) * p.B * p.H + bh;  // INTER
+  const long long e_idx =   // INTER
+      (long long)(c - 1 + p.inter0) * p.B * p.H + bh;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int quad = lane & 3;
 
@@ -1124,7 +1171,7 @@ __global__ void __launch_bounds__(TC_THREADS) mlstm_out_tc(TcParams p) {
   const int bh = blk / p.nc;
   const int t0 = rt * TC_ROWS;
   if (t0 >= min(TC_CH, p.S - c * TC_CH)) return;   // a short last chunk
-  if (c > 0)
+  if (c > 0 || p.inter0)
     out_block<VT, true>(p, sm, base, bh, c, t0, jt * VT);
   else
     out_block<VT, false>(p, sm, base, bh, c, t0, jt * VT);
@@ -1161,14 +1208,16 @@ int launch_tc(TcParams p, cudaStream_t stream) {
   }
   const long long bh = (long long)p.B * p.H;
   // State blocks: one per (batch, head, 64 key rows), each walking a run of
-  // value tiles.  With one chunk the outputs kernel runs beside the state
-  // kernel (it needs nothing from it), so the runs are split until there
-  // is one state block an SM, leaving room on each SM for an outputs block;
-  // with more chunks the outputs wait for the states, and the runs are
-  // split until two state blocks an SM are in flight.
+  // value tiles.  With one chunk and no state entering it the outputs
+  // kernel runs beside the state kernel (it needs nothing from it), so the
+  // runs are split until there is one state block an SM, leaving room on
+  // each SM for an outputs block; when some chunk has an entering state
+  // the outputs wait for the states, and the runs are split until two
+  // state blocks an SM are in flight.
   const long long rows = bh * (p.hd / TC_DT);
   const int n_jt = p.hd / VT;
-  const long long per_sm = p.nc > 1 ? 2 : 1;
+  const bool inter = p.nc > 1 || p.inter0;   // some chunk waits for states
+  const long long per_sm = inter ? 2 : 1;
   const long long want = per_sm * n_sm / rows;
   const int runs = (int)(want < 1 ? 1 : want > n_jt ? n_jt : want);
   p.jpb = (n_jt + runs - 1) / runs;
@@ -1178,13 +1227,13 @@ int launch_tc(TcParams p, cudaStream_t stream) {
   mlstm_state_tc<VT><<<(unsigned)n_state, TC_THREADS, StateShape<VT>::SMEM,
                        stream>>>(p);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess || !p.outputs) return (int)err;
   // a programmatic dependent launch: it may start once every state block
   // has started (griddepcontrol in the kernels orders what must wait)
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)n_out);
   cfg.blockDim = dim3(TC_THREADS);
-  cfg.dynamicSmemBytes = OutShape<VT>::smem(p.nc > 1);
+  cfg.dynamicSmemBytes = OutShape<VT>::smem(inter);
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
@@ -1208,24 +1257,37 @@ extern "C" {
 // path: 0 = CUDA cores (f32 or bf16), 1 = wgmma (bf16, 16-byte aligned, dq
 // = dv a multiple of 64, normalized).  dtype: 0 = float32, 1 = bfloat16 (q,
 // k, v alike).  dq: width of q and k, dv: of v.  normalize: 1 divides by the
-// normalizer, 0 returns the numerator at the stabilizer.  `scratch` holds
-// the wgmma path's entering states when S > 128 (f32 words: (ceil(S/128) -
-// 1) * B * H * (hd*hd + hd + 1), see scratch_floats in mlstm_chunk.py).
-// Returns 0 on success, a CUDA error code, -1 for a head dim, -2 for a
-// dtype, -3 for shapes, alignment or a missing scratch, -4 for a path, -5
-// for a form (unnormalized or dq != dv) the wgmma path does not take.
+// normalizer, 0 returns the numerator at the stabilizer.  C0, n0, m0, loga0:
+// the state entering the sequence, contiguous f32 (B,H,dq,dv), (B,H,dq),
+// (B,H), (B,H), all four or none (null: the zero state, as before they
+// existed); the final state returned is then the combine of that state with
+// the sequence's.  y null: the final state alone (the CUDA-core path skips
+// the output products, the wgmma path launches its state kernel only).
+// `scratch` holds the wgmma path's entering states when it makes outputs and
+// some chunk has one (f32 words: (ceil(S/128) - 1 + (C0 given)) * B * H *
+// (hd*hd + hd + 1), see scratch_floats in mlstm_chunk.py).  Returns 0 on
+// success, a CUDA error code, -1 for a head dim, -2 for a dtype, -3 for
+// shapes, alignment, a partial entering state or a missing scratch, -4 for
+// a path, -5 for a form (unnormalized or dq != dv) the wgmma path does not
+// take.
 int mlstm_chunk_fwd(const void* q, const void* k, const void* v,
                     const float* g, const float* i, float* y, float* C,
-                    float* n, float* m, float* loga, int dtype, int B, int S,
-                    int H, int dq, int dv, long long q_sb, long long q_ss,
-                    long long q_sh, long long k_sb, long long k_ss,
-                    long long k_sh, long long v_sb, long long v_ss,
-                    long long v_sh, long long g_sb, long long g_ss,
-                    long long g_sh, long long i_sb, long long i_ss,
-                    long long i_sh, float scale, int normalize, int path,
-                    void* scratch, void* stream) {
+                    float* n, float* m, float* loga, const float* C0,
+                    const float* n0, const float* m0, const float* loga0,
+                    int dtype, int B, int S, int H, int dq, int dv,
+                    long long q_sb, long long q_ss, long long q_sh,
+                    long long k_sb, long long k_ss, long long k_sh,
+                    long long v_sb, long long v_ss, long long v_sh,
+                    long long g_sb, long long g_ss, long long g_sh,
+                    long long i_sb, long long i_ss, long long i_sh,
+                    float scale, int normalize, int path, void* scratch,
+                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B < 1 || S < 1 || H < 1) return -3;
+  const bool init = C0 != nullptr;
+  if ((n0 != nullptr) != init || (m0 != nullptr) != init ||
+      (loga0 != nullptr) != init)
+    return -3;
   if (path == 1) {
     if (dq != dv || !normalize) return -5;
     const int hd = dq;
@@ -1235,19 +1297,21 @@ int mlstm_chunk_fwd(const void* q, const void* k, const void* v,
         !aligned16(v, v_sb, v_ss, v_sh))
       return -3;
     const int nc = (S + TC_CH - 1) / TC_CH;
-    const long long e = (long long)(nc - 1) * B * H;
+    const long long e = y != nullptr ? (long long)(nc - 1 + init) * B * H : 0;
     if (e > 0 && (scratch == nullptr ||
                   reinterpret_cast<uintptr_t>(scratch) % 16 != 0))
       return -3;
     float* sf = static_cast<float*>(scratch);
-    __nv_bfloat16* e_hi = static_cast<__nv_bfloat16*>(scratch);
+    __nv_bfloat16* e_hi = e > 0 ? static_cast<__nv_bfloat16*>(scratch)
+                                : nullptr;
     TcParams tp{static_cast<const __nv_bfloat16*>(q),
                 static_cast<const __nv_bfloat16*>(k),
                 static_cast<const __nv_bfloat16*>(v), g, i, y, C, n, m, loga,
+                C0, n0, m0, loga0,
                 e_hi, e > 0 ? e_hi + e * hd * hd : nullptr,
                 e > 0 ? sf + e * hd * hd : nullptr,
                 e > 0 ? sf + e * hd * (hd + 1) : nullptr,
-                B, S, H, hd, nc, 1,
+                B, S, H, hd, nc, init, y != nullptr, 1,
                 q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
                 g_sb, g_ss, g_sh, i_sb, i_ss, i_sh, scale};
     return hd % 128 == 0 ? launch_tc<128>(tp, st) : launch_tc<64>(tp, st);
@@ -1256,7 +1320,8 @@ int mlstm_chunk_fwd(const void* q, const void* k, const void* v,
   const int dt = value_tile(dq), vt = value_tile(dv);
   if (dt == 0 || vt == 0) return -1;
   if ((long long)B * H * (dv / vt) > 0x7fffffffLL) return -3;
-  Params p{q, k, v, g, i, y, C, n, m, loga, B, S, H, dq, dv, dt, vt,
+  Params p{q, k, v, g, i, y, C, n, m, loga, C0, n0, m0, loga0,
+           B, S, H, dq, dv, dt, vt,
            q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
            g_sb, g_ss, g_sh, i_sb, i_ss, i_sh, scale, normalize != 0};
   if (dtype == 0) return launch<float>(p, st);

@@ -19,16 +19,21 @@ within a chunk is summed in f64.  The chunk form takes differences
 log(sigmoid(-10)) |lg| reaches hundreds, and in f32 each difference then
 carries ~1e-4 of rounding into every exponent, which puts the output
 outside 5e-4 of the sequential oracle (``ref.reference_mlstm``) where the
-normalizer cancels.  In f64 the differences keep f32 precision.  The JAX
-module also shards the sequence over the "model" axis under the
-``train_sp`` layout (an exclusive prefix across shards); that branch
-waits for ROADMAP A.15.3b, and under ``train_sp`` ``linear_recurrence``
-raises ``NotImplementedError`` naming it.
+normalizer cancels.  In f64 the differences keep f32 precision.
 
-It lives in the kernels layer because it is what the ``mlstm_chunk``
-wrapper runs on CPU tensors and what ``chip_smoke.py`` holds the kernel
-against; ``models.ssm`` takes ``ScanState`` and ``combine`` from here for
-its decode step.
+Under the ``train_sp`` layout the sequence is split over the "model" axis
+and ``linear_recurrence`` takes the JAX module's branch
+(``src/repro/models/ssm.py:163-181``): each rank scans its own columns
+from the zero state, the ranks' final states are gathered over the axis
+(``shard_states``), the combine of ranks 0..s-1 in order is rank s's
+exclusive prefix, which is combined into every local entering state, and
+the global final state is returned on every rank.  ``local_recurrence``
+is the one-rank function under every layout: what the ``mlstm_chunk``
+wrapper runs on CPU tensors, what its autograd Function recomputes, and
+what ``chip_smoke.py`` holds the kernel against.
+
+It lives in the kernels layer for that reason; ``models.ssm`` takes
+``ScanState`` and ``combine`` from here for its decode step.
 """
 from __future__ import annotations
 
@@ -143,6 +148,42 @@ def _local_scan(elems: ScanState):
     return stacked, carry
 
 
+def _chain(parts):
+    """The combine of ``parts`` in order, left to right (None when empty)."""
+    out = None
+    for part in parts:
+        out = part if out is None else combine(out, part)
+    return out
+
+
+def shard_states(own: ScanState):
+    """Under ``train_sp`` on T > 1 ranks: ``own``, this rank's final state
+    over its columns from the zero state, gathered over the model axis
+    (``dist.collectives.stack_gather``: one all-gather; backward, a
+    reduce-scatter) -> (prefix, final, gathered).  ``prefix`` is the
+    combine of ranks 0..s-1's states in order, the state entering this
+    rank's columns (None on rank 0); ``final`` is the combine of all T, the
+    sequence's final state, the same on every rank.  Only the last rank's
+    ``final`` carries a gradient (the reference's ``psum`` of the last
+    rank's final: every rank's loss reads the same replicated state, so
+    its cotangent is counted once).  The combines start from rank 0's state
+    itself, which is what ``combine`` of the identity with it gives, bit
+    for bit.  ``gathered`` (the four stacked tensors) is for rank 0 to tie
+    into its y (``collectives.depend``): every rank must join the gather's
+    backward, rank 0 too, whose y reads no other rank's state."""
+    from repro_torch.dist import collectives   # collectives imports this
+    ax = collectives.model_axis()
+    s, T = ax.index, ax.size
+    gathered = collectives.stack_gather(tuple(own))
+    parts = [ScanState(*(t[j] for t in gathered)) for j in range(T)]
+    prefix = _chain(parts[:s])
+    if s == T - 1:
+        final = combine(prefix, parts[s])
+    else:
+        final = _chain([_map(torch.Tensor.detach, p) for p in parts])
+    return prefix, final, gathered
+
+
 def linear_recurrence(q, k, v, g, i, *, chunk: int = 128,
                       init_state: Optional[ScanState] = None,
                       normalize: bool = True, scale: Optional[float] = None):
@@ -151,9 +192,27 @@ def linear_recurrence(q, k, v, g, i, *, chunk: int = 128,
     Returns (y (B,S,h,dv) f32, final_state).  The chunk is ``chunk`` when it
     divides S and S is longer, else the whole of S, as in JAX.  ``scale``
     (None: 1/sqrt(dq)) multiplies q k; ``normalize=False`` returns JAX's
-    unnormalized numerator.
+    unnormalized numerator.  Under ``train_sp`` on more than one rank, q..i
+    are this rank's columns, which start from the exclusive prefix of the
+    ranks before it; the final state is the whole sequence's, on every
+    rank (the module note).
     """
-    shd.require_no_ssm("linear_recurrence")
+    sharded = shd.seq_parallel() and shd.layout().n_shards > 1
+    return _recurrence(q, k, v, g, i, chunk, init_state, normalize, scale,
+                       sharded)
+
+
+def local_recurrence(q, k, v, g, i, *, chunk: int = 128,
+                     init_state: Optional[ScanState] = None,
+                     normalize: bool = True, scale: Optional[float] = None):
+    """``linear_recurrence`` on this rank's tensors as the whole sequence,
+    whatever the layout."""
+    return _recurrence(q, k, v, g, i, chunk, init_state, normalize, scale,
+                       False)
+
+
+def _recurrence(q, k, v, g, i, chunk, init_state, normalize, scale,
+                sharded):
     B, S, h, dq = q.shape
     dv = v.shape[-1]
     c = chunk if S % chunk == 0 and S > chunk else S
@@ -167,9 +226,19 @@ def linear_recurrence(q, k, v, g, i, *, chunk: int = 128,
     ic = i.reshape(B, nc, c, h).float()
     elems = _chunk_states(kc.float(), vc.float(), gc, ic)
     entering, final = _local_scan(elems)
+    tie = ()   # rank 0's y reads no other rank's state
+    if sharded:
+        prefix, final, gathered = shard_states(final)
+        if prefix is None:
+            tie = gathered
+        else:
+            entering = combine(_map(lambda t: t[:, None], prefix), entering)
     if init_state is not None:
         entering = combine(_map(lambda t: t[:, None], init_state), entering)
         final = combine(init_state, final)
     y = _chunk_outputs(qc, kc, vc, gc, ic, entering, normalize=normalize,
                        scale=scale)
+    if tie:
+        from repro_torch.dist import collectives
+        y = collectives.depend(y, *tie)
     return y.reshape(B, S, h, dv), final

@@ -17,6 +17,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_adam import LeafTable, fused_adam_
 from repro_torch.kernels.masked_grad_agg import masked_grad_agg
 from repro_torch.kernels.mlstm_chunk import mlstm_chunk
+from repro_torch.kernels.mlstm_plain import shard_states
 
 
 def attention(q, k, v, *, causal=True, window=0, length=None):
@@ -36,12 +37,30 @@ def mlstm(q, k, v, g, i, *, normalize=True, scale=None):
     state for its decode cache.  With grad mode on and an input that
     requires a gradient (training), a CUDA tensor goes through the autograd
     Function ``MLSTMChunk`` (the kernel forward, the plain recurrence's
-    backward) and a CPU tensor through ``linear_recurrence``, which
-    autograd differentiates directly.  Under ``train_sp`` it raises by
-    name: the kernel starts every call from the zero state, and a rank's
-    columns need the earlier ranks' (ROADMAP A.15.3b)."""
-    shd.require_no_ssm("mlstm")
-    return mlstm_chunk(q, k, v, g, i, normalize=normalize, scale=scale)
+    backward) and a CPU tensor through ``local_recurrence``, which
+    autograd differentiates directly.
+
+    Under ``train_sp`` on T > 1 ranks the tensors are this rank's columns
+    and the JAX module's exclusive prefix across ranks runs through the
+    kernel (``src/repro/models/ssm.py:163-181``): rank 0 launches from the
+    zero state; rank s > 0 first launches for its own final state alone,
+    the ranks' states are gathered (``mlstm_plain.shard_states``), and it
+    launches again from the combine of ranks 0..s-1's.  The final state
+    returned is the whole sequence's, on every rank.  With one rank on the
+    axis the call is the one-process one."""
+    form = {"normalize": normalize, "scale": scale}
+    lay = shd.layout()
+    if not (shd.seq_parallel(lay) and lay.n_shards > 1):
+        return mlstm_chunk(q, k, v, g, i, **form)
+    if lay.mesh.index((lay.model_axis,)) > 0:
+        _, own = mlstm_chunk(q, k, v, g, i, outputs=False, **form)
+        prefix, final, _ = shard_states(own)
+        y, _ = mlstm_chunk(q, k, v, g, i, init_state=prefix, **form)
+        return y, final
+    from repro_torch.dist import collectives   # collectives imports this
+    y, own = mlstm_chunk(q, k, v, g, i, **form)
+    _, final, gathered = shard_states(own)
+    return collectives.depend(y, *gathered), final
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,8 @@ reference's ``tests/sharded`` payloads, and run on gloo in the CPU tests:
   * ``sp_collectives`` — the sequence collectives of ``train_sp`` and
     their gradients, ``sp_attention`` — ``attention_sp`` on each rank's
     columns, ``sp_ring_ce`` — the vocab-ring CE and its gradients,
-    ``sp_raises`` — what the SSM archs raise under ``train_sp``;
+    ``sp_ssm`` — the SSM cores (the recurrence, the conv, the sLSTM) on
+    each rank's columns;
   * ``cutoff_sgd``     — ``launch.cutoff_sgd.train`` on the ranks;
   * ``several``        — several of these in one process group.
 
@@ -427,26 +428,66 @@ def sp_ring_ce(cases):
     return out
 
 
-def sp_raises(cfgs):
-    """The train forward of each config (seeded weights, a batch of 2 x 8)
-    under ``train_sp`` on (1, R): the message of what it raises
-    (``NotImplementedError`` expected), or None."""
-    from repro_torch.dist import sharding as shd
-    from repro_torch.models import model as M
+def sp_ssm(cases):
+    """The SSM cores under ``train_sp`` on (1, R), each on this rank's
+    columns of a full numpy case (``tests/test_torch_sp_ssm.py`` builds
+    them), forward and backward against one seeded cotangent:
 
-    lay, _ = _sp_layout()
+      * ``rec`` / ``rec_ops`` — ``ssm.linear_recurrence`` (the plain
+        prefix) / ``kernels.ops.mlstm`` (the kernel's flow; the plain
+        version on the CPU) of q, k, v, g, i, ``form`` their options; with
+        ``heads`` q and k are (B, S, n) rows broadcast over that many
+        heads, as Hymba's Mamba heads take them;
+      * ``conv`` — ``ssm.causal_conv1d`` of x with weights w, b;
+      * ``slstm`` — ``ssm.slstm_apply`` of x with ``params``.
+
+    Each gives (this rank's output columns, the final state or None, the
+    gradients: of each input's columns, then of each weight, this rank's
+    part of it)."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.models import ssm
+
+    lay, s = _sp_layout()
+    T = lay.n_shards
+
+    def local(a):
+        n = a.shape[1] // T
+        return torch.from_numpy(np.array(a[:, s * n:(s + 1) * n]))
+
+    def leaf(a):
+        return torch.from_numpy(np.array(a)).requires_grad_(True)
+
     out = []
-    for cfg in cfgs:
-        params = M.init_model(cfg, torch.Generator().manual_seed(0),
-                              device="cpu")
-        batch = {"tokens": torch.zeros(2, 8, dtype=torch.long),
-                 "positions": torch.arange(8).expand(2, 8)}
-        try:
-            with shd.use_layout(lay):
-                M.forward(cfg, params, batch)
-            out.append(None)
-        except NotImplementedError as e:
-            out.append(str(e))
+    for c in cases:
+        kind = c["kind"]
+        ins = [local(c[k]).requires_grad_(True) for k in c["cols"]]
+        weights = [leaf(c[k]) for k in c.get("weights", ())]
+        with shd.use_layout(lay):
+            if kind in ("rec", "rec_ops"):
+                q, k, v, g, i = ins
+                if c.get("heads"):
+                    q, k = (t[:, :, None].expand(*t.shape[:2], c["heads"],
+                                                 t.shape[-1]) for t in (q, k))
+                fn = ssm.linear_recurrence if kind == "rec" else ops.mlstm
+                y, final = fn(q, k, v, g, i, **c["form"])
+            elif kind == "conv":
+                y, final = ssm.causal_conv1d(ins[0], *weights), None
+            else:
+                params = dict(zip(c["weights"], weights))
+                y, final = ssm.slstm_apply(params, ins[0], c["n_heads"])
+        outs, cots = [y], [local(c["cot"])]
+        # the final state: every rank's loss reads it, the last rank's
+        # carries its gradient (the others' are detached)
+        for t, a in zip(final or (), c.get("cot_final", ())):
+            if t.requires_grad:
+                outs.append(t)
+                cots.append(torch.from_numpy(np.array(a)))
+        grads = torch.autograd.grad(outs, ins + weights, cots)
+        out.append((y.detach().numpy(),
+                    None if final is None else
+                    [t.detach().numpy() for t in final],
+                    [g.numpy() for g in grads]))
     return out
 
 

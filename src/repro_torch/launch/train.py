@@ -463,7 +463,12 @@ def make_train_step(cfg, optimizer: optim.Optimizer, *,
 
     def weights_grads_of(params, batch, dp, z=None):
         if dp is None and z is None:
-            return grads_of(params, batch, normalizer_of(batch))
+            # the optimizer's kernel reads contiguous leaves, and autograd
+            # may hand a leaf's gradient back permuted (the sLSTM's r, out
+            # of its einsum); the other paths copy into flat buffers
+            loss, metrics, grads = grads_of(params, batch,
+                                            normalizer_of(batch))
+            return loss, metrics, [g.contiguous() for g in grads]
         R, r = (1, 0) if dp is None else (dp.size, dp.index)
         if cfg.family == "moe" and dp is not None:
             raise NotImplementedError(

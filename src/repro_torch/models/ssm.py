@@ -1,20 +1,19 @@
 """SSM cores: the mLSTM decode step, the causal conv and the sLSTM.
 
-Twin of ``repro.models.ssm`` on one device.  The chunked stabilized linear
-recurrence (``ScanState``, ``combine``, ``linear_recurrence``) is the plain
-version of the Hopper kernel and lives beside it in
-``kernels.mlstm_plain``; it is re-exported here so the module keeps the
-JAX module's names.  The JAX module also shards the sequence over the
-"model" axis under the ``train_sp`` layout (an exclusive prefix across
-shards, a conv halo, a gathered sLSTM); those branches wait for ROADMAP
-A.15.3b (``dist.sharding.WAITS_FOR["train_sp_ssm"]``): under
-``train_sp`` the recurrence, the causal conv and the sLSTM raise
-``NotImplementedError`` naming it rather than run on one rank's columns
-as if they were the whole sequence.  Every function here is the JAX
-local path.
+Twin of ``repro.models.ssm``.  The chunked stabilized linear recurrence
+(``ScanState``, ``combine``, ``linear_recurrence``) is the plain version of
+the Hopper kernel and lives beside it in ``kernels.mlstm_plain``; it is
+re-exported here so the module keeps the JAX module's names.  Under the
+``train_sp`` layout, where each rank holds its own columns of the
+sequence, the three take the JAX module's branches: the recurrence the
+exclusive prefix across ranks (``mlstm_plain``; ``kernels.ops.mlstm`` on
+the card), the causal conv a halo of the ``cw - 1`` positions before a
+rank's columns from the rank before it, and the sLSTM, which is not
+associative, a gather of its input projection and the whole scan on every
+rank, each keeping its own columns.
 
 The xLSTM and Hymba prefills on the card go through the kernel
-``kernels.mlstm_chunk``; on CPU tensors they run ``linear_recurrence``.
+``kernels.mlstm_chunk``; on CPU tensors they run its plain version.
 Decode runs ``recurrence_step`` on either device, as the JAX package
 computes it outside any kernel.
 """
@@ -59,15 +58,38 @@ def recurrence_step(state: ScanState, q, k, v, g, i, *,
 
 def causal_conv1d(x, w, b=None, *, init_state=None):
     """x: (B, S, C); w: (cw, C) depthwise; left-pads with zeros (or
-    ``init_state`` (B, cw-1, C) during decode/chunked prefill)."""
-    shd.require_no_ssm("causal_conv1d")
+    ``init_state`` (B, cw-1, C) during decode/chunked prefill).  Under
+    ``train_sp`` on more than one rank, x is this rank's columns and the
+    pad is the rank before it's last ``cw - 1`` positions (zeros on rank 0),
+    as the reference's ``ppermute`` sends them (its ``:256-264``)."""
     cw = w.shape[0]
     S = x.shape[1]
-    left = (init_state if init_state is not None
-            else x.new_zeros((x.shape[0], cw - 1, x.shape[2])))
+    if shd.seq_parallel() and shd.layout().n_shards > 1:
+        left = _halo_left(x, cw - 1)
+    else:
+        left = (init_state if init_state is not None
+                else x.new_zeros((x.shape[0], cw - 1, x.shape[2])))
     xp = torch.cat([left, x], dim=1)
     y = sum(xp[:, j:j + S] * w[j] for j in range(cw))
     return y + (b if b is not None else 0.0)
+
+
+def _halo_left(x, n):
+    """The ``n`` positions before this rank's columns ``x`` (B, S_l, C):
+    the previous rank's last ``n``, by one point-to-point send each way
+    (``dist.collectives.halo``, whose backward sends the gradient back);
+    zeros on the first rank."""
+    from repro_torch.dist import collectives as C
+
+    if x.shape[1] < n:
+        raise ValueError(f"causal_conv1d under train_sp: a rank's {x.shape[1]}"
+                         f" columns are fewer than the conv's {n}-position "
+                         f"halo")
+    got = C.halo(x[:, x.shape[1] - n:], 1, 1)
+    if got.shape[1] == n:   # the first rank: nothing before it, but its
+        # tail's gradient comes back from the next rank in the backward
+        return C.depend(x.new_zeros((x.shape[0], n, x.shape[2])), got)
+    return got[:, :n]
 
 
 # ---------------------------------------------------------------------------
@@ -79,12 +101,18 @@ def slstm_apply(params, x, n_heads: int, *, init_state=None):
     """x: (B, S, D).  Returns (h (B,S,D) in x's dtype, final_state).
 
     The state is (c, n, h, m), each (B, n_heads, hd) f32.  A Python loop
-    over S, one step per position, as the JAX ``lax.scan`` runs it.
+    over S, one step per position, as the JAX ``lax.scan`` runs it.  Under
+    ``train_sp`` x is this rank's columns: the input projection is gathered
+    over the model axis, every rank runs the whole scan, and h is this
+    rank's columns of it (the reference's replicated scan, its
+    ``:298-333``); the final state is the whole sequence's, its gradient
+    carried by the last rank alone, as ``linear_recurrence``'s is.
     """
-    shd.require_no_ssm("slstm_apply")
-    B, S, D = x.shape
+    B, _, D = x.shape
     hd = D // n_heads
-    pre = (x @ params["w"] + params["bias"]).float()   # (B,S,4D)
+    pre = shd.act(x @ params["w"] + params["bias"], "dp", None, None)
+    S = pre.shape[1]
+    pre = pre.float()                                   # (B,S,4D)
     r = params["r"].float()                             # (4, nh, hd, hd)
     if init_state is None:
         z = torch.zeros((B, n_heads, hd), dtype=torch.float32,
@@ -105,5 +133,8 @@ def slstm_apply(params, x, n_heads: int, *, init_state=None):
         h = torch.sigmoid(zo) * c / torch.clamp(n, min=1.0)
         m = m_new
         hs.append(h)
-    out = torch.stack(hs, dim=1).reshape(B, S, D)
-    return out.to(x.dtype), (c, n, h, m)
+    out = torch.stack(hs, dim=1).reshape(B, S, D).to(x.dtype)
+    final = (c, n, h, m)
+    if not shd.seq_last():   # every rank holds it; the last one's counts
+        final = tuple(t.detach() for t in final)
+    return shd.act(out, "dp", "sp", None, seq="full"), final

@@ -1,7 +1,6 @@
 """The sequence-parallel collectives of ``train_sp`` (the port's
 ``dist.collectives``) on 2 and 4 gloo ranks against numpy, forward and
-backward, the layout helpers of ``dist.sharding``, and the SSM archs,
-which raise by name under ``train_sp`` (ROADMAP A.15.3b).
+backward, and the layout helpers of ``dist.sharding``.
 
 Each collective runs on a (1, R) ("data", "model") mesh under
 ``make_layout(mesh, "train_sp")`` (``launch.ranks.sp_collectives``) on
@@ -17,7 +16,6 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs.base import get_config as tget
 from repro_torch.dist import sharding as shd
 from repro_torch.launch import ranks
 from repro_torch.perf.knobs import knobs, use_knobs
@@ -81,11 +79,6 @@ def runs(tmp_path_factory):
     for T in (2, 4):
         d = _data(T, seed=T)
         calls = [(ranks.sp_collectives, (d,), {})]
-        if T == 2:
-            calls.append((ranks.sp_raises, ([tget("xlstm-350m").reduced(),
-                                              tget("hymba-1.5b").reduced(),
-                                              tget("qwen2-0.5b").reduced()],),
-                          {}))
         pg = tmp_path_factory.mktemp(f"spc{T}") / "pg"
         out[T] = (d, ranks.spawn(ranks.several, T, calls,
                                  init_method=f"file://{pg}"))
@@ -108,18 +101,6 @@ def test_sequence_collective_and_its_backward_match_numpy(runs, T, name):
                                    err_msg=f"{name} rank {s} output")
         np.testing.assert_allclose(got_g, want_g, rtol=0, atol=TOL,
                                    err_msg=f"{name} rank {s} gradient")
-
-
-@pytest.mark.parametrize("arch", ["xlstm-350m", "hymba-1.5b"])
-def test_ssm_archs_raise_by_name_under_train_sp(runs, arch):
-    """The SSM branches of ``train_sp`` (the exclusive prefix across
-    shards, the conv halo, the gathered sLSTM, and mlstm_chunk's entering
-    state) wait for A.15.3b: the forward raises, naming it, and never runs
-    a rank's columns as a whole sequence."""
-    msgs = runs[2][1][0][1]
-    msg = msgs[["xlstm-350m", "hymba-1.5b"].index(arch)]
-    assert msg is not None and "A.15.3b" in msg, msg
-    assert msgs[2] is None   # an attention arch runs
 
 
 class _Mesh:

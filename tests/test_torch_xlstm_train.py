@@ -4,10 +4,13 @@
 the card, the plain version here; the backward recomputes the plain
 recurrence) against ``jax.grad`` of the reference
 ``repro.models.ssm.linear_recurrence`` at S 128 (one chunk) and S 256 (two
-chunks), then the reduced xlstm-350m (3 mLSTM + 1 sLSTM blocks): the
-``train_loss`` gradients, one ``make_train_step`` on each ``mask_agg``
-path with a worker dropped, and a 4-step ``Trainer`` run against the JAX
-``Trainer``.  Inputs are numpy, seeded.
+chunks), and from an entering state with a loss that also reads the final
+state (the entering state's gradients too), then the reduced xlstm-350m
+(3 mLSTM + 1 sLSTM blocks): the ``train_loss`` gradients, one
+``make_train_step`` on each ``mask_agg`` path with a worker dropped, the
+weights step's gradients contiguous as the optimizer's kernel reads
+them, and a 4-step ``Trainer`` run against the JAX ``Trainer``.  Inputs
+are numpy, seeded.
 
 Tolerances: the recurrence's y and gradients, and the model's gradients,
 at 1e-4 of each leaf's largest magnitude (f32; the port sums the chunk's
@@ -48,7 +51,8 @@ from repro_torch.configs.base import get_config as tget
 from repro_torch.core import controller as tctl
 from repro_torch.data.pipeline import SyntheticTokens
 from repro_torch.kernels import ops
-from repro_torch.kernels.mlstm_chunk import MLSTMChunk, mlstm_chunk
+from repro_torch.kernels.mlstm_chunk import MLSTMChunk
+from repro_torch.kernels.mlstm_plain import ScanState, local_recurrence
 from repro_torch.launch import train as TT
 from repro_torch.models import model as TM
 
@@ -97,26 +101,89 @@ def test_mlstm_chunk_function_grads_match_jax(S):
         assert err <= REC_TOL, (name, err)
 
 
-def test_mlstm_chunk_function_keeps_dtypes_and_refuses_a_state_grad():
-    """bf16 q/k/v get bf16 gradients and the f32 gates f32 ones; a gradient
-    that reaches the final state raises instead of being dropped; the
-    backward matches autograd of the plain recurrence on the same
-    (bf16-rounded) inputs."""
+def _state_inputs(B, H, dq, dv, seed):
+    """An entering ScanState as numpy (loga, m, C, n) -- a real state, the
+    recurrence's own final over a seeded prefix -- and cotangents for each
+    of its four tensors."""
+    rng = np.random.default_rng(seed)
+    xs, _ = _rec_inputs(32, seed + 1, B=B, H=H, hd=dq)
+    _, st = JS.linear_recurrence(*map(jnp.asarray, xs), normalize=True)
+    state = [np.array(t) for t in st]
+    cots = [rng.standard_normal(t.shape).astype(np.float32) for t in state]
+    return state, cots
+
+
+def _with_state_loss(y, st, r, rs):
+    return (y * r).sum() + sum((a * b).sum() for a, b in zip(st, rs))
+
+
+def test_mlstm_chunk_function_keeps_dtypes_and_takes_a_state_grad():
+    """bf16 q/k/v get bf16 gradients, the f32 gates and the f32 entering
+    state f32 ones; a loss that reads y and the final state gets the
+    Function's gradients equal to autograd of the plain recurrence from the
+    same entering state on the same (bf16-rounded) inputs, bit for bit,
+    and so does the states-only form (``outputs`` False)."""
     xs, r = _rec_inputs(64, 3)
+    st_np, rs_np = _state_inputs(2, 2, 16, 16, 5)
     ts = [torch.from_numpy(a) for a in xs]
     ts[:3] = [t.to(torch.bfloat16) for t in ts[:3]]
     ts = [t.requires_grad_(True) for t in ts]
-    y, *state = MLSTMChunk.apply(*ts)
-    grads = torch.autograd.grad((y * torch.from_numpy(r)).sum(), ts,
-                                retain_graph=True)
-    assert [g.dtype for g in grads] == [t.dtype for t in ts]
+    st = [torch.from_numpy(a).requires_grad_(True) for a in st_np]
+    r, rs = torch.from_numpy(r), [torch.from_numpy(a) for a in rs_np]
+    y, *final = MLSTMChunk.apply(*ts, True, None, True, *st)
+    grads = torch.autograd.grad(_with_state_loss(y, final, r, rs), ts + st)
+    assert [g.dtype for g in grads] == [t.dtype for t in ts + st]
     plain = [t.detach().float().requires_grad_(True) for t in ts]
-    yp, _ = mlstm_chunk(*plain)
-    want = torch.autograd.grad((yp * torch.from_numpy(r)).sum(), plain)
+    pst = [t.detach().clone().requires_grad_(True) for t in st]
+    yp, fp = local_recurrence(*plain, init_state=ScanState(*pst))
+    want = torch.autograd.grad(_with_state_loss(yp, fp, r, rs), plain + pst)
     for a, b in zip(grads, want):
         torch.testing.assert_close(a, b.to(a.dtype), rtol=0, atol=0)
-    with pytest.raises(RuntimeError, match="ScanState takes no gradient"):
-        torch.autograd.grad(y.sum() + state[2].sum(), ts)
+    # the final state alone, from the zero state
+    only = MLSTMChunk.apply(*ts, True, None, False)
+    assert len(only) == 4
+    got = torch.autograd.grad(sum((a * b).sum() for a, b in zip(only, rs)),
+                              ts, allow_unused=True)
+    _, f0 = local_recurrence(*plain)
+    want = torch.autograd.grad(sum((a * b).sum() for a, b in zip(f0, rs)),
+                               plain, allow_unused=True)
+    assert got[0] is None and want[0] is None   # q reads no state
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b.to(a.dtype), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("S", [64, 256])
+def test_mlstm_chunk_function_state_grads_match_jax(S):
+    """From an entering state, with a loss that reads y and the final
+    state: y, the final state and the gradients of q, k, v, g, i and of
+    the entering state's four tensors against ``jax.grad`` of the
+    reference ``linear_recurrence(init_state=...)``, at REC_TOL of each
+    one's scale (S 256: two chunks)."""
+    xs, r = _rec_inputs(S, S + 1)
+    st_np, rs_np = _state_inputs(2, 2, 16, 16, S)
+
+    def jloss(q, k, v, g, i, *st):
+        y, fin = JS.linear_recurrence(q, k, v, g, i, normalize=True,
+                                      init_state=JS.ScanState(*st))
+        return (jnp.sum(y * r) + sum(jnp.sum(a * b)
+                                     for a, b in zip(fin, rs_np))), (y, fin)
+
+    (_, (jy, jfin)), jg = jax.value_and_grad(
+        jloss, argnums=tuple(range(9)), has_aux=True)(
+            *map(jnp.asarray, xs + st_np))
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in xs + st_np]
+    y, *final = MLSTMChunk.apply(*ts[:5], True, None, True, *ts[5:])
+    tg = torch.autograd.grad(_with_state_loss(
+        y, final, torch.from_numpy(r), [torch.from_numpy(a) for a in rs_np]),
+        ts)
+    assert _scaled(y.detach().numpy(), np.asarray(jy)) <= REC_TOL
+    for name, a, b in zip(("loga", "m", "C", "n"), final, jfin):
+        err = _scaled(a.detach().numpy(), np.asarray(b))
+        assert err <= REC_TOL, (name, err)
+    names = list("qkvgi") + ["loga0", "m0", "C0", "n0"]
+    for name, a, b in zip(names, tg, jg):
+        err = _scaled(a.numpy(), np.asarray(b))
+        assert err <= REC_TOL, (name, err)
 
 
 def test_cpu_tensors_take_the_plain_recurrence_directly():
@@ -271,3 +338,31 @@ def test_depth_two_with_the_slstm_trains():
     moved = [bool((a != b).any()) for a, b in
              zip(tree.leaves(state["params"]), before)]
     assert all(moved), moved
+
+
+def test_weights_step_hands_the_optimizer_contiguous_gradients():
+    """The one-process weights path hands the optimizer contiguous
+    gradients: the fused Adam kernel on the card reads contiguous leaves,
+    and autograd returns the sLSTM's recurrent weights' gradient permuted
+    (out of its einsum); the psum and data-parallel paths copy into flat
+    buffers."""
+    _, tc = _cfgs()
+    seen = []
+    inner = toptim.adamw(LR, fused=True)
+
+    def update(grads, state, params=None):
+        seen.extend(tree.leaves(grads))
+        return inner.update(grads, state, params)
+
+    opt = toptim.Optimizer(inner.init, update)
+    params = TM.init_model(tc, torch.Generator().manual_seed(0),
+                           device="cpu")
+    batch = SyntheticTokens(tc.vocab_size, 16, 4, seed=1).batch(0)
+    f = np.ones(4, np.float32)
+    _, m = TT.make_train_step(tc, opt, mask_agg="weights")(
+        {"params": params, "opt": opt.init(params)},
+        dict(batch, weights=j_example_weights(f, 4)))
+    assert np.isfinite(m["loss"].item())
+    assert len(seen) == len(tree.leaves(params))
+    assert all(g.is_contiguous() for g in seen), [
+        tuple(g.stride()) for g in seen if not g.is_contiguous()]
